@@ -6,8 +6,8 @@
 set -e
 cd "$(dirname "$0")/.."
 
-echo "== repo non-test source (.py/.cpp outside tests/ tpu_tests/):"
-find hercules_tpu cpp bench.py __graft_entry__.py \
+echo "== repo non-test source (.py/.cpp outside tests/):"
+find hercules_tpu cpp bench.py chip_smoke.py \
     \( -name '*.py' -o -name '*.cpp' \) -type f | sort \
     | xargs wc -l | tail -1
 

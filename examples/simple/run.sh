@@ -1,6 +1,6 @@
 #!/bin/bash
 # examples/simple: the reference's golden regression case
-# (mirrors /root/reference/examples/simple/quake.sh for the TPU stack).
+# (mirrors /root/reference/examples/simple/quake.sh for this stack).
 # Runs the 1 km^3 homogeneous box at 5 Hz with the SRFH point source
 # and diffs the station seismograms against the committed golden
 # outputs when available.

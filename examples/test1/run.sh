@@ -1,6 +1,6 @@
 #!/bin/bash
 # examples/test1: the reference's LA-basin smoke case
-# (mirrors /root/reference/examples/test1/quake.sh for the TPU stack).
+# (mirrors /root/reference/examples/test1/quake.sh for this stack).
 # The LA-basin CVM database (labase.e) is not shipped with the
 # reference; this driver synthesizes a layered basin stand-in with
 # tools/makecvm.py, then runs the reference's physics.in/numerical.in

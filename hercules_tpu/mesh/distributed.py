@@ -14,7 +14,7 @@ Key properties:
 
 - The Morton keys are z-most-significant (etree.morton.interleave3),
   so contiguous key intervals are depth-slabs at the top level — the
-  same decomposition family the slab/gslab solvers use.
+  same decomposition family the slab solver uses.
 - Numbering is EXACT: per-process owned-node blocks concatenate to
   the global Z-order node sort and per-process element blocks to the
   global element sort, so gnids, element order, and the dangling

@@ -273,7 +273,8 @@ def nl_state_update(d, ue24, state, dt):
     stresses, pstrains, ep = state
     Enl = ue24.shape[0]
     # strains at all qp: [Enl, 48] -> [Enl, 8, 6]
-    tstr = (ue24 @ d["S"].T).reshape(Enl, 8, 6) / d["h"][:, None, None]
+    tstr = (jnp.matmul(ue24, d["S"].T, precision="highest").reshape(Enl, 8, 6)
+            / d["h"][:, None, None])
 
     if d["model"] == "linear":
         sig = nl_stress(tstr, d["mu"][:, None], d["lam"][:, None])
@@ -322,9 +323,10 @@ def nl_state_update(d, ue24, state, dt):
 
 def nl_force(d, state, dt2):
     """compute_addforce_nl: f24 = -dt^2 * (h^2/8) sum_j F[j] sigma[j]."""
+    import jax.numpy as jnp
     sig = state[0]
     Enl = sig.shape[0]
-    f = (sig.reshape(Enl, 48) @ d["F"].T)
+    f = jnp.matmul(sig.reshape(Enl, 48), d["F"].T, precision="highest")
     return -dt2 * (d["h"] ** 2 / 8.0)[:, None] * f
 
 

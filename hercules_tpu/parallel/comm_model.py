@@ -1,23 +1,19 @@
-"""Per-step ICI communication model for the multi-chip solver paths.
+"""Per-step communication model for the multi-chip solver paths.
 
 The reference exchanges halos with four index-mapped MPI sends per
 timestep (schedule_senddata, psolve.c:4946-5079) and publishes no
 model of the traffic.  Here every path's per-step exchange is a small
 set of static-shape collectives, so the volume is exactly computable
-from the partition tables — this module derives it and turns it into
-a pod-shaped scaling prediction (compute time from a measured
-single-chip rate, communication time from ICI bandwidth/latency).
+from the partition tables -- this module derives it and turns it into
+a scaling projection (compute time from a measured single-card rate,
+communication time from the card's published link rate).  A projection
+is never a measurement: collective times come from a profiler trace.
 
-Byte counts are per device per step, counting bytes *sent* (ICI links
-are full duplex; the symmetric receive rides the opposite direction):
+Byte counts are per device per step, counting bytes *sent* (links are
+full duplex; the symmetric receive rides the opposite direction):
 
 - slab (parallel/slab.py): two ppermutes of one [3, nyp*nxp] force
   plane each (up and down neighbors).
-- gslab (parallel/gslab.py): the slab exchange per brick fragment,
-  plus per cross-device 2:1 interface one [9, nyc, nxc] coarse
-  triplet and one [3, nyc, nxc] reconciled plane back, and per
-  cross-device same-level interface one [9, ny, nx] triplet and one
-  [3, ny, nx] plane back.
 - sharded (parallel/sharded.py): one psum over the [B_pad, 3]
   shared-node boundary buffer; a ring all-reduce moves
   2*(n-1)/n * B_pad*3 values per device in 2*(n-1) latency phases.
@@ -32,22 +28,35 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 
-# Hardware envelopes (per chip).  ICI figures are one-way per-link
-# injection bandwidth; a z-slab ring maps each logical neighbor onto
-# one ICI hop so per-device sends to distinct neighbors proceed in
-# parallel at link rate.  Values are the public per-generation specs
-# (HBM BW, ICI links) rounded; override per deployment as needed.
 @dataclass(frozen=True)
 class HwModel:
     name: str
-    hbm_gbps: float          # HBM bandwidth, GB/s
-    ici_gbps: float          # one-way ICI bandwidth per link, GB/s
-    ici_latency_us: float    # per collective phase
-    dcn_gbps: float = 6.25   # per-host DCN (50 Gbps), for pod+ scale
+    hbm_gbps: float          # device memory bandwidth, GB/s
+    link_gbps: float         # one-way card-to-card bandwidth, GB/s
+    phase_latency_us: float  # per collective phase (assumed, see below)
 
 
-V5E = HwModel("v5e", hbm_gbps=819.0, ici_gbps=45.0, ici_latency_us=1.0)
-V5P = HwModel("v5p", hbm_gbps=2765.0, ici_gbps=90.0, ici_latency_us=1.0)
+# Published per-card figures, keyed by jax's device_kind.  Source:
+# NVIDIA H100 Tensor Core GPU data sheet, SXM part: 3.35 TB/s HBM3,
+# 900 GB/s NVLink (450 GB/s each way), all-to-all inside a host.  No
+# per-phase collective latency is published; 5 us is an assumption to
+# be replaced by a trace measurement.
+HARDWARE = {
+    "NVIDIA H100 80GB HBM3": HwModel("H100 SXM", hbm_gbps=3350.0,
+                                     link_gbps=450.0,
+                                     phase_latency_us=5.0),
+}
+
+
+def hw_model(device_kind: str) -> HwModel:
+    """The table entry for a device kind; an unknown device is an
+    error, not a default."""
+    try:
+        return HARDWARE[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published link/memory figures for device kind "
+            f"{device_kind!r}; add it to comm_model.HARDWARE") from None
 
 
 @dataclass
@@ -71,70 +80,6 @@ def slab_comm(st, dtype_bytes=4) -> PathComm:
                     detail={"plane": plane})
 
 
-def gslab_comm(st, dtype_bytes=4) -> PathComm:
-    """Exchange volume of the graded stacked-slab path.
-
-    Per brick the fragment ring halo (gslab.py:307-308); per
-    cross-device interface the (u, up, u_next) triplet over and the
-    reconciled plane back (gslab.py:330-336, 351-356).  Interface
-    traffic is point-to-point between the two end devices; the
-    per-device max is what bounds the step."""
-    n = st.n_dev
-    frag = [0] * n
-    phases = [0] * n
-    for gb in st.bricks:
-        for d in range(n):
-            frag[d] += 2 * 3 * gb.plane * dtype_bytes
-            phases[d] += 2
-    iface = [0] * n
-    for h, (df, _lzf, dc, _lzc) in zip(st.rec.hang, st.hang_own):
-        if df == dc:
-            continue
-        # coarse triplet to the fine device, reconciled plane back;
-        # each end device is the source of exactly one transfer
-        iface[dc] += 9 * h.nyc * h.nxc * dtype_bytes
-        iface[df] += 3 * h.nyc * h.nxc * dtype_bytes
-        phases[dc] += 1
-        phases[df] += 1
-    for s, (da, _lza, db, _lzb) in zip(st.rec.same, st.same_own):
-        if da == db:
-            continue
-        iface[db] += 9 * s.ny * s.nx * dtype_bytes
-        iface[da] += 3 * s.ny * s.nx * dtype_bytes
-        phases[db] += 1
-        phases[da] += 1
-    tot = [f + i for f, i in zip(frag, iface)]
-    worst = max(range(n), key=lambda d: tot[d])
-    return PathComm("gslab", n, tot[worst], phases=phases[worst],
-                    detail={"fragment_bytes": frag[worst],
-                            "interface_bytes": iface[worst],
-                            "n_bricks": len(st.bricks),
-                            "n_interfaces": len(st.rec.hang)
-                            + len(st.rec.same)})
-
-
-def gmesh_comm(st, dtype_bytes=4) -> PathComm:
-    """Exchange volume of the general graded path (gmesh.py).
-
-    Per brick the fragment ring halo (two [3, plane] force-plane
-    ppermutes, gmesh.py local_step); plus ONE psum of the [K, 9]
-    interface entry buffer (ring all-reduce: 2*(n-1)/n * payload per
-    device, 2*(n-1) phases)."""
-    n = st.n_dev
-    frag = 0
-    phases = 0
-    for gb in st.bricks:
-        frag += 2 * 3 * gb.plane * dtype_bytes
-        phases += 2
-    payload = st.K * 9 * dtype_bytes
-    psum_b = int(2 * (n - 1) / n * payload) if st.K else 0
-    ph = phases + (2 * (n - 1) if st.K else 0)
-    return PathComm("gmesh", n, frag + psum_b, phases=ph,
-                    detail={"fragment_bytes": frag,
-                            "psum_bytes": psum_b, "K": st.K,
-                            "n_bricks": len(st.bricks)})
-
-
 def sharded_comm(st, dtype_bytes=None) -> PathComm:
     """Exchange volume of the unstructured sharded path.
 
@@ -152,19 +97,19 @@ def sharded_comm(st, dtype_bytes=None) -> PathComm:
 
 
 def predict(comm: PathComm, n_elem: int, eups_1chip: float,
-            hw: HwModel = V5E) -> dict:
-    """Pod-shaped scaling prediction for one path/device count.
+            hw: HwModel) -> dict:
+    """Scaling projection for one path/device count.
 
-    t_compute from the measured single-chip element rate (the kernel
-    is HBM-bound, so it scales with the local element count);
-    t_comm = phases * latency + bytes / link rate.  The collectives
+    t_compute from the measured single-card element rate (it scales
+    with the local element count); t_comm = phases * latency + bytes /
+    link rate.  The collectives
     sit on the critical path inside the scanned step (the force
     exchange feeds the node update), so the serialized sum is the
     honest bound; the overlap column shows the ceiling if a future
     kernel hides the exchange behind compute."""
     t_compute = n_elem / comm.n_dev / eups_1chip
-    t_comm = (comm.phases * hw.ici_latency_us * 1e-6
-              + comm.bytes_out / (hw.ici_gbps * 1e9))
+    t_comm = (comm.phases * hw.phase_latency_us * 1e-6
+              + comm.bytes_out / (hw.link_gbps * 1e9))
     t_serial = t_compute + t_comm
     t_overlap = max(t_compute, t_comm)
     return {
@@ -190,48 +135,9 @@ def slab_comm_dims(nxp, nyp, n_dev, dtype_bytes=4) -> PathComm:
                     phases=2, detail={"plane": plane})
 
 
-def plan_scaling_report(plan, n_elem, eups_1chip,
-                        device_counts=(1, 2, 4, 8, 16, 32, 64, 128,
-                                       256),
-                        hw: HwModel = V5E) -> str:
-    """Scaling projection for a brick plan (uniform OR graded).
-
-    Every brick is split over the device ring along its outer storage
-    axis (parallel/gslab.py), so per-device fragment traffic is the
-    sum of brick shared-plane exchanges — constant in n.  Cross-device
-    2:1 interface planes add one coarse plane pair per interface
-    (bounded by one extra brick plane; counted exactly in gslab_comm
-    once tables are built).  The split cap is the smallest brick's
-    outer element extent."""
-    planes = [b.node_shape[1] * b.node_shape[2] for b in plan.bricks]
-    bytes_dev = sum(2 * 3 * pl * 4 for pl in planes)
-    phases = 2 * len(planes)
-    cap = min(b.node_shape[0] - 1 for b in plan.bricks)
-    lines = [
-        f"# comm model ({hw.name}): {len(planes)} brick(s), "
-        f"fragment halo {bytes_dev/1e6:.2f} MB/dev/step "
-        f"({phases} phases), measured {eups_1chip:.3e} eups/chip",
-        "# ndev  t_comp(us)  t_comm(us)  t_step(us)   eups         eff",
-    ]
-    for n in device_counts:
-        if n > cap:
-            lines.append(f"# {n:5d}  -- exceeds the smallest brick's "
-                         f"{cap} outer element layers (split cap)")
-            continue
-        c = (PathComm("gslab", 1, 0, 0) if n == 1
-             else PathComm("gslab", n, bytes_dev, phases))
-        r = predict(c, n_elem, eups_1chip, hw)
-        lines.append(
-            f"# {n:5d}  {r['t_compute_s']*1e6:10.1f}  "
-            f"{r['t_comm_s']*1e6:10.1f}  {r['t_step_s']*1e6:10.1f}   "
-            f"{r['eups']:.3e}  {r['efficiency']*100:5.1f}%")
-    return "\n".join(lines)
-
-
-def scaling_report(nxp, nyp, nzp, n_elem, eups_1chip,
-                   device_counts=(1, 2, 4, 8, 16, 32, 64, 128, 256),
-                   hw: HwModel = V5E) -> str:
-    """Text table: predicted slab-path scaling over a device ring.
+def scaling_report(nxp, nyp, nzp, n_elem, eups_1chip, hw: HwModel,
+                   device_counts=(1, 2, 4, 8, 16, 32, 64, 128, 256)) -> str:
+    """Text table: projected slab-path scaling over a device ring.
 
     The z-slab split caps useful devices at nzp-1 element layers; rows
     beyond that are marked.  Communication per device is *constant* in
@@ -239,11 +145,11 @@ def scaling_report(nxp, nyp, nzp, n_elem, eups_1chip,
     and efficiency falls only as local compute shrinks toward t_comm.
     """
     lines = [
-        f"# comm model: {hw.name} "
-        f"(ICI {hw.ici_gbps:.0f} GB/s/link, "
-        f"{hw.ici_latency_us:.1f} us/phase); "
+        f"# comm model (projection, not a measurement): {hw.name} "
+        f"(link {hw.link_gbps:.0f} GB/s each way, "
+        f"{hw.phase_latency_us:.1f} us/phase assumed); "
         f"mesh {nxp-1}x{nyp-1}x{nzp-1} elem = {n_elem:.3e}, "
-        f"measured {eups_1chip:.3e} eups/chip",
+        f"measured {eups_1chip:.3e} eups/card",
         "# ndev  bytes/dev/step  t_comp(us)  t_comm(us)  t_step(us)"
         "   eups         eff",
     ]

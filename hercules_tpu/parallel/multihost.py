@@ -1,12 +1,14 @@
-"""Multi-host (DCN) execution: the pod-scale analogue of the
+"""Multi-host execution: the cluster-scale analogue of the
 reference's MPI ranks (SURVEY section 2.7; BASELINE config 5).
 
 The reference scales by adding MPI ranks connected over the
 interconnect; every rank meshes its partition and exchanges halos
-point-to-point.  The TPU-native shape is: one JAX process per host,
-`jax.distributed.initialize` over DCN, a single global device mesh
-whose slab axis spans every host's chips (ICI inside a slice, DCN
-across hosts), and the SAME shard_map slab step as single-host runs --
+point-to-point.  The shape here is: one JAX process per host (or, when
+several processes share a machine, one per card: --local-device),
+`jax.distributed.initialize` over the network, a single global device
+mesh whose slab axis spans every host's cards (NVLink inside a host,
+the network across hosts), and the SAME shard_map slab step as
+single-host runs --
 XLA routes the per-step plane `ppermute`s over whichever fabric
 connects neighboring shards.  Meshing stays host-side and SHARDED:
 every process refines/balances/extracts only its Z-order block
@@ -159,8 +161,7 @@ def correct_properties_multihost(mesh, cvm, params, origin=None,
 
 
 def run_slab_multihost(st, src_forces, total_steps, dt,
-                       dtype=jnp.float32, chunk=None, axis="d",
-                       pallas=False):
+                       dtype=jnp.float32, chunk=None, axis="d"):
     """Slab solver over the global (multi-host) device mesh.
 
     st: SlabTables built identically on every process (from the
@@ -168,19 +169,14 @@ def run_slab_multihost(st, src_forces, total_steps, dt,
     device state is constructed shard-locally via make_global, so it
     works with addressable-only device subsets.
     """
-    from .slab import make_slab_pallas_step, make_slab_step
+    from .slab import make_slab_step
 
     mesh_dev = global_device_mesh(axis)
     n_dev = st.n_dev
     assert n_dev == len(jax.devices()), \
         f"slab tables built for {n_dev} shards but the global mesh " \
         f"has {len(jax.devices())} devices"
-    if pallas:
-        scan_fn, tdev, LEN, conv_info = make_slab_pallas_step(
-            st, mesh_dev, axis=axis, dtype=dtype)
-    else:
-        scan_fn, tdev = make_slab_step(st, mesh_dev, axis=axis,
-                                       dtype=dtype)
+    scan_fn, tdev = make_slab_step(st, mesh_dev, axis=axis, dtype=dtype)
 
     npdt = np.dtype(jnp.zeros((), dtype).dtype)
     sharded = lambda a: make_global(a, mesh_dev, P(axis))
@@ -196,122 +192,14 @@ def run_slab_multihost(st, src_forces, total_steps, dt,
     else:
         tdev = jax.tree.map(lambda a: sharded(np.asarray(a)), tdev)
 
-    nn = LEN if pallas else st.tot_local
-    from .slab import slab_pallas_packed
-    if pallas and slab_pallas_packed(st):
-        S = sharded(np.zeros((n_dev, 8, nn), npdt))
-        if st.damping == "bkt":
-            conv_rows, conv_dtype = conv_info
-            cn = np.dtype(jnp.zeros((), conv_dtype).dtype)
-            state = (S, sharded(np.zeros((n_dev, conv_rows, nn), cn)))
-        else:
-            state = (S,)
+    u = np.zeros((n_dev, 3, st.tot_local), npdt)
+    if st.damping == "bkt":
+        conv = tuple(sharded(np.zeros((n_dev, 24, st.meta.S), npdt))
+                     for _ in range(4))
+        state = (sharded(u), sharded(u), conv)
     else:
-        u = np.zeros((n_dev, 3, nn), npdt)
-        if st.damping == "bkt":
-            if pallas:
-                conv_rows, conv_dtype = conv_info
-                cn = np.dtype(jnp.zeros((), conv_dtype).dtype)
-                conv = sharded(np.zeros((n_dev, conv_rows, nn), cn))
-            else:
-                conv = tuple(sharded(np.zeros((n_dev, 24, st.meta.S),
-                                              npdt))
-                             for _ in range(4))
-            state = (sharded(u), sharded(u), conv)
-        else:
-            state = (sharded(u), sharded(u))
+        state = (sharded(u), sharded(u))
 
-    if chunk is None:
-        chunk = min(total_steps, 1000)
-    dt2 = dt * dt
-    s = 0
-    while s < total_steps:
-        k = min(chunk, total_steps - s)
-        xs = (repl(np.asarray(src_forces[s:s + k] * dt2, npdt)),
-              repl(np.arange(s, s + k, dtype=np.int32)))
-        state = scan_fn(tdev, state, xs)
-        s += k
-    return state
-
-
-def run_gslab_multihost(st, src_forces, total_steps, dt,
-                        dtype=jnp.float32, chunk=None, axis="d",
-                        interpret=False):
-    """Graded (stacked-slab) solver over the global device mesh: the
-    pod-scale path for depth-graded meshes (parallel/gslab.py)."""
-    from .gslab import make_gslab_step
-
-    mesh_dev = global_device_mesh(axis)
-    n_dev = st.n_dev
-    assert n_dev == len(jax.devices()), \
-        f"gslab tables built for {n_dev} shards but the global mesh " \
-        f"has {len(jax.devices())} devices"
-    scan_fn, tdev = make_gslab_step(st, mesh_dev, axis=axis,
-                                    dtype=dtype, interpret=interpret)
-
-    npdt = np.dtype(jnp.zeros((), dtype).dtype)
-    sharded = lambda a: make_global(a, mesh_dev, P(axis))
-    repl = lambda a: make_global(a, mesh_dev, P())
-    tdev = jax.tree.map(lambda a: sharded(np.asarray(a)), tdev)
-
-    if st.packed:
-        Ss = tuple(sharded(np.zeros((n_dev, 8, gb.LEN), npdt))
-                   for gb in st.bricks)
-        if st.damping == "bkt":
-            cn = np.dtype(jnp.zeros((), st.conv_dtype_node).dtype)
-            state = (Ss, tuple(sharded(np.zeros(
-                (n_dev, st.conv_rows_node, gb.LEN), cn))
-                for gb in st.bricks))
-        else:
-            state = (Ss,)
-    else:
-        u = tuple(sharded(np.zeros((n_dev, 3, gb.LEN), npdt))
-                  for gb in st.bricks)
-        if st.damping == "bkt":
-            cn = np.dtype(jnp.zeros((), st.conv_dtype).dtype)
-            conv = tuple(sharded(np.zeros((n_dev, st.conv_rows, gb.LEN),
-                                          cn)) for gb in st.bricks)
-            state = (u, u, conv)
-        else:
-            state = (u, u)
-
-    if chunk is None:
-        chunk = min(total_steps, 1000)
-    dt2 = dt * dt
-    s = 0
-    while s < total_steps:
-        k = min(chunk, total_steps - s)
-        xs = (repl(np.asarray(src_forces[s:s + k] * dt2, npdt)),
-              repl(np.arange(s, s + k, dtype=np.int32)))
-        state = scan_fn(tdev, state, xs)
-        s += k
-    return state
-
-
-def run_gmesh_multihost(st, src_forces, total_steps, dt,
-                        dtype=jnp.float32, chunk=None, axis="d",
-                        interpret=False):
-    """General graded-mesh solver over the global (multi-host) device
-    mesh: the pod path for LATERALLY graded meshes (parallel/gmesh.py
-    — any brick decomposition, one [K, 9] interface psum per step).
-    The reference's halo is partition-agnostic (psolve.c:4946-5079);
-    this is the multihost expression of the same property."""
-    from .gmesh import make_gmesh_step
-
-    mesh_dev = global_device_mesh(axis)
-    n_dev = st.n_dev
-    assert n_dev == len(jax.devices()), \
-        f"gmesh tables built for {n_dev} shards but the global mesh " \
-        f"has {len(jax.devices())} devices"
-    scan_fn, tdev = make_gmesh_step(st, mesh_dev, axis=axis,
-                                    dtype=dtype, interpret=interpret)
-    npdt = np.dtype(jnp.zeros((), dtype).dtype)
-    sharded = lambda a: make_global(np.asarray(a), mesh_dev, P(axis))
-    repl = lambda a: make_global(a, mesh_dev, P())
-    tdev = jax.tree.map(sharded, tdev)
-    Ss = tuple(sharded(np.zeros((n_dev, 8, gb.LEN), npdt))
-               for gb in st.bricks)
-    state = (Ss, sharded(np.zeros((n_dev, 8, st.NL), npdt)))
     if chunk is None:
         chunk = min(total_steps, 1000)
     dt2 = dt * dt
@@ -424,10 +312,16 @@ def main(argv=None):
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--nprocs", type=int, default=1)
     ap.add_argument("--pid", type=int, default=0)
+    ap.add_argument("--local-device", type=int, default=None,
+                    help="the one local card this process uses; required "
+                         "when several processes run on one machine")
     ap.add_argument("inputs", nargs="+")
     args = ap.parse_args(argv)
 
-    nproc, pid = init_multihost(args.coordinator, args.nprocs, args.pid)
+    nproc, pid = init_multihost(
+        args.coordinator, args.nprocs, args.pid,
+        local_device_ids=(None if args.local_device is None
+                          else [args.local_device]))
     print(f"[multihost] process {pid}/{nproc}, "
           f"{len(jax.local_devices())} local / {len(jax.devices())} "
           f"global devices")
@@ -468,37 +362,22 @@ def main(argv=None):
     tables = assemble(mesh, params)
     sm = SourceModel.parse(params)
     src_ids, src_forces = sm.compute_forces(mesh, params)
-    # table construction decides the decomposition; only IT may fall
-    # back (a RuntimeError mid-solve must propagate, not be retried).
-    # Fallback chain (choose_path order): slab -> graded gslab ->
-    # general gmesh -> unstructured sharded (single-process only)
-    st = gst = gmt = None
+    # table construction decides the decomposition: slab for a single
+    # uniform brick, else the unstructured sharded path (single-process
+    # only).  A RuntimeError mid-solve propagates.
     try:
         st = build_slab_tables(mesh, tables, len(jax.devices()),
                                src_ids=src_ids)
-    except RuntimeError:
-        from .gslab import build_gslab_tables, gslab_u_global
-        try:
-            gst = build_gslab_tables(mesh, tables, len(jax.devices()),
-                                     src_ids=src_ids)
-        except RuntimeError:
-            from .gmesh import build_gmesh_tables, gmesh_u_global
-            try:
-                gmt = build_gmesh_tables(mesh, tables,
-                                         len(jax.devices()),
-                                         src_ids=src_ids)
-            except RuntimeError as e:
-                print(f"[multihost] structured decompositions "
-                      f"unavailable ({e}); using the unstructured "
-                      f"sharded path")
-    if st is None and gst is None and gmt is None:
+    except RuntimeError as e:
         from .partition import shard_tables
         from .sharded import gather_global as sh_gather, run_sharded
         if nproc > 1:
             raise RuntimeError(
-                "unstructured sharded fallback is single-process only "
-                "(its tables are not built shard-locally); re-mesh to "
-                "a slab/gslab/gmesh-decomposable shape for pod runs")
+                "the unstructured sharded path is single-process only "
+                "(its tables are not built shard-locally); re-mesh to a "
+                "slab-decomposable shape for pod runs") from e
+        print(f"[multihost] slab decomposition unavailable ({e}); "
+              f"using the unstructured sharded path")
         ust = shard_tables(tables, mesh, len(jax.devices()),
                            src_ids=src_ids)
         state = run_sharded(ust, global_device_mesh(), src_forces,
@@ -508,33 +387,12 @@ def main(argv=None):
             print(f"[multihost] done (unstructured): "
                   f"|u|max = {np.abs(ug).max():.6e}")
         return 0
-    if gmt is not None:
-        from .gmesh import gmesh_u_global
-        state = run_gmesh_multihost(gmt, src_forces,
-                                    params.total_steps,
-                                    params.delta_t)
-        us = (tuple(gather_global(a) for a in state[0]),
-              gather_global(state[1]))
-        if pid == 0:
-            ug = gmesh_u_global(gmt, us, mesh.nnum)
-            print(f"[multihost] done (gmesh): "
-                  f"|u|max = {np.abs(ug).max():.6e}")
-        return 0
-    if st is not None:
-        state = run_slab_multihost(st, src_forces, params.total_steps,
-                                   params.delta_t)
-        u = gather_global(state[0])
-        if pid == 0:
-            ug = slab_u_global(st, u, mesh.nnum)
-            print(f"[multihost] done: |u|max = {np.abs(ug).max():.6e}")
-        return 0
-    state = run_gslab_multihost(gst, src_forces, params.total_steps,
-                                params.delta_t)
-    us = tuple(gather_global(a) for a in state[0])
+    state = run_slab_multihost(st, src_forces, params.total_steps,
+                               params.delta_t)
+    u = gather_global(state[0])
     if pid == 0:
-        ug = gslab_u_global(gst, us, mesh.nnum)
-        print(f"[multihost] done (graded): "
-              f"|u|max = {np.abs(ug).max():.6e}")
+        ug = slab_u_global(st, u, mesh.nnum)
+        print(f"[multihost] done: |u|max = {np.abs(ug).max():.6e}")
     return 0
 
 

@@ -15,8 +15,7 @@ O(shard + slab), and the arithmetic reproduces the global build
 BITWISE (contributions are re-summed in global element order).
 
 Scope: the slab decomposition (single uniform brick — the production
-large-mesh case).  Graded meshes keep the gather_mesh path for now
-(gslab/gmesh table builders are global-input).
+large-mesh case).  Graded meshes keep the gather_mesh path.
 """
 
 from __future__ import annotations
@@ -335,8 +334,6 @@ def build_slab_tables_shard(shard, params, comm, n_dev,
     cs = {k: np.zeros((nloc, tot_local)) for k in ckeys}
     bks = ({k: np.zeros((nloc, tot_local)) for k in bkeys}
            if bkt_local is not None else None)
-    vals_v = (np.zeros((nloc, tot_local)) if bkt_local is not None
-              else None)
     invm = np.zeros((nloc, tot_local))
     m1 = np.zeros((nloc, 3, tot_local))
     gnids = [None] * n_dev
@@ -358,7 +355,6 @@ def build_slab_tables_shard(shard, params, comm, n_dev,
         if bks is not None:
             for bi, k in enumerate(bkeys):
                 bks[k][dl, lp] = crows[sel, 1 + len(ckeys) + bi]
-            vals_v[dl, lp] = 1.0
 
         # masses: aggregated + ordered individual sums
         msA = np.zeros(real)        # mass_simple
@@ -406,10 +402,6 @@ def build_slab_tables_shard(shard, params, comm, n_dev,
         kmu, kkappa = bkt_matrices_24()
         st.kmu = kmu
         st.kkappa = kkappa
-        st.bkt_valid = vals_v
-        import os
-        if os.environ.get("HT_BKT_UNIFORM", "1") != "0":
-            st.bk_scal = _detect_bkt_uniform_shard(bkt_local, E, comm)
     return st
 
 
@@ -458,31 +450,3 @@ def attach_sources_shard(st: SlabTables, shard, src_gnids, comm):
     st.src_lidx = np.stack(srcl)
     st.src_mask = np.stack(srcm)
     return st
-
-
-def _detect_bkt_uniform_shard(bkt_local, E, comm):
-    """Global uniform-Q detection without global arrays: per-rank
-    uniformity + cross-rank set equality (detect_bkt_uniform
-    semantics)."""
-    from ..solver.pallas_brick import (bk_row_names, bkt_kappa_zero,
-                                      detect_bkt_uniform)
-    kz_local = 1 if (E == 0 or bkt_kappa_zero(bkt_local)) else 0
-    kz = comm.allreduce_max(1 - kz_local) == 0
-    scal = None
-    if E:
-        scal = detect_bkt_uniform(
-            {k: np.broadcast_to(np.asarray(v), (E,))
-             for k, v in bkt_local.items()},
-            np.arange(E), np.ones(E, bool), kz)
-    names = bk_row_names(kz)
-    row = (np.array([[1.0] + [scal[k] for k in names]])
-           if scal is not None else
-           np.array([[0.0] + [0.0] * len(names)]))
-    if E == 0:
-        row = np.zeros((0, 1 + len(names)))
-    rows = [g for g in comm.allgather_rows(row) if len(g)]
-    tbl = np.concatenate(rows, axis=0)
-    if (tbl[:, 0] == 1.0).all() and \
-            (tbl[1:] == tbl[:1]).all():
-        return dict(zip(names, tbl[0, 1:]))
-    return None

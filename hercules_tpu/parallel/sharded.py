@@ -88,7 +88,8 @@ def sharded_step_builder(st, axis="d", dtype=jnp.float32, nl=None,
             du = ue - upe
             a = t["c1"][:, None] * ue + t["c3"][:, None] * du
             b = t["c2"][:, None] * ue + t["c4"][:, None] * du
-            f_elem = -(jnp.concatenate([a, b], 1) @ m48)
+            f_elem = -jnp.matmul(jnp.concatenate([a, b], 1), m48,
+                                 precision="highest")
         else:
             bk = t["bkt"]
             ue3 = ue.reshape(E, 8, 3)
@@ -113,9 +114,10 @@ def sharded_step_builder(st, axis="d", dtype=jnp.float32, nl=None,
             dvk = (bk["kappa_coef"][:, None, None] * du3
                    - (bk["a0_kappa"][:, None, None] * k0
                       + bk["a1_kappa"][:, None, None] * k1) + ue3)
-            f_elem = (bk["mu_f"][:, None] * (dvs.reshape(E, 24) @ kmu)
+            f_elem = (bk["mu_f"][:, None]
+                      * jnp.matmul(dvs.reshape(E, 24), kmu, precision="highest")
                       + bk["kappa_f"][:, None]
-                      * (dvk.reshape(E, 24) @ kkappa))
+                      * jnp.matmul(dvk.reshape(E, 24), kkappa, precision="highest"))
             conv = (s0, s1, k0, k1)
 
         # nonlinear state update first (solver_nonlinear_state,
@@ -172,8 +174,8 @@ def sharded_step_builder(st, axis="d", dtype=jnp.float32, nl=None,
                 ub = u_now[t["nl_bot_lnid"]].reshape(Eb, 24)
                 a_ = t["nl_bc1"][:, None] * ub
                 b_ = t["nl_bc2"][:, None] * ub
-                kf = (jnp.concatenate([a_, b_], 1)
-                      @ m48).reshape(Eb, 8, 3)
+                kf = jnp.matmul(jnp.concatenate([a_, b_], 1), m48,
+                                precision="highest").reshape(Eb, 8, 3)
                 new_r = kf[:, 4:, 2] - t["nl_bot_W"][:, None]
                 reactions = jnp.where(
                     step_idx == nl["final_step"], new_r, reactions)

@@ -5,9 +5,9 @@ production large-mesh case), the device mesh splits the node grid into
 contiguous z-slabs.  Each device runs the dense brick kernel on its
 slab; the only communication is the element-force partial sums on the
 two shared node *planes*, which are contiguous slices — so the halo
-exchange is slice + ppermute + add, with zero gathers.  This is the
-ICI equivalent of the reference's schedule_senddata halo
-(psolve.c:4946-5079) at full hardware efficiency.
+exchange is slice + ppermute + add, with zero gathers: the
+equivalent of the reference's schedule_senddata halo
+(psolve.c:4946-5079).
 
 Displacements need no share-back: after the force exchange both
 replicas of a shared plane hold identical totals and identical mass
@@ -28,7 +28,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..solver.bricks import build_plan
-from ..solver.brickstep import BrickMeta, assemble_brick_tables
+from ..solver.brickstep import HIGHEST, BrickMeta, assemble_brick_tables
 
 
 @dataclass
@@ -63,21 +63,14 @@ class SlabTables:
     bkt: dict = None                # [n_dev, tot_local] BKT coefficients
     kmu: np.ndarray = None          # [24, 24] BKT operators
     kkappa: np.ndarray = None
-    # uniform-Q tier: one global coefficient set -> packed node-basis
-    # BKT kernel on the fused slab path (pallas_brick.
-    # _make_bkt_uniform_kernel); bkt_valid = per-fragment element
-    # validity row (ghost planes + non-element columns zeroed)
-    bk_scal: dict = None
-    bkt_valid: np.ndarray = None    # [n_dev, tot_local]
 
 
 def build_slab_tables(mesh, tables, n_dev, src_ids=None,
                       legacy_axes=True, dev_slice=None) -> SlabTables:
     """Split the single uniform brick into per-device fragments along
     the OUTER storage axis (z under the legacy layout; the largest xy
-    extent when legacy_axes=False triggers build_plan's axis reorder,
-    which is what lets flat production bricks keep the fused kernel's
-    VMEM envelope).  Uneven splits are supported: devices own ez_lo or
+    extent when legacy_axes=False triggers build_plan's axis reorder
+    for flat bricks).  Uneven splits are supported: devices own ez_lo or
     ez_lo+1 layers (extras to the first nz%n_dev devices), every
     fragment padded to the static (ez_hi+1)-plane buffer with zeroed
     element coefficients.
@@ -121,7 +114,6 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
     cs = {k: [] for k in ("c1", "c2", "c3", "c4")}
     bks = ({k: [] for k in t_host["bkt"]}
            if tables.damping == "bkt" else None)
-    vals = []
     invm, m1 = [], []
     srcl, srcm = [], []
     gnids = []
@@ -149,9 +141,6 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
                 v = t_host["bkt"][k][n0:n1].copy()
                 v[ez_d * plane :] = 0.0
                 bks[k].append(padded(v, real))
-            v = plan.evalid_cat[n0:n1].astype(np.float64).copy()
-            v[ez_d * plane :] = 0.0
-            vals.append(padded(v, real))
         invm.append(padded(t_host["inv_mass"][n0:n1], real))
         m1.append(padded(t_host["mass_minusaM"][:, n0:n1], real))
         if L:
@@ -181,15 +170,6 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
         st.bkt = {k: np.stack(v) for k, v in bks.items()}
         st.kmu = t_host["kmu_cat"]
         st.kkappa = t_host["kkappa_cat"]
-        st.bkt_valid = np.stack(vals)
-        import os
-        if os.environ.get("HT_BKT_UNIFORM", "1") != "0":
-            from ..solver.pallas_brick import (bkt_kappa_zero,
-                                               detect_bkt_uniform)
-            E = len(np.asarray(tables.bkt["shear_c1"]))
-            st.bk_scal = detect_bkt_uniform(
-                tables.bkt, np.arange(E), np.ones(E, bool),
-                bkt_kappa_zero(tables.bkt))
     return st
 
 
@@ -233,7 +213,8 @@ def slab_step_builder(st: SlabTables, axis="d", dtype=jnp.float32):
         if not bkt:
             a = t["c1"][None, : m.S] * ue + t["c3"][None, : m.S] * du
             b = t["c2"][None, : m.S] * ue + t["c4"][None, : m.S] * du
-            fe = -(mcat @ jnp.concatenate([a, b], axis=0))
+            fe = -jnp.matmul(mcat, jnp.concatenate([a, b], axis=0),
+                             precision=HIGHEST)
         else:
             # BKT convolutional viscoelasticity (damping.c:110-416):
             # local memory-variable recursion + matrix-free operators;
@@ -260,8 +241,9 @@ def slab_step_builder(st: SlabTables, axis="d", dtype=jnp.float32):
                    - (bsl("a0_shear") * s0 + bsl("a1_shear") * s1) + ue)
             dvk = (bsl("kappa_coef") * du
                    - (bsl("a0_kappa") * k0 + bsl("a1_kappa") * k1) + ue)
-            fe = (bsl("mu_f") * (kmu @ dvs)
-                  + bsl("kappa_f") * (kkappa @ dvk))
+            fe = (bsl("mu_f") * jnp.matmul(kmu, dvs, precision=HIGHEST)
+                  + bsl("kappa_f") * jnp.matmul(kkappa, dvk,
+                                                precision=HIGHEST))
 
         force = jnp.zeros((3, st.tot_local), dtype)
         force = _scatter(force, fe, m)
@@ -359,277 +341,6 @@ def run_slab_solver(st: SlabTables, mesh_dev, src_forces, total_steps,
 def slab_u_global(st: SlabTables, u_sharded, N):
     """Global [N, 3] field from the stacked slab states."""
     arr = np.asarray(u_sharded)          # [n_dev, 3, tot_local]
-    u = np.zeros((N, 3), arr.dtype)
-    for d in range(st.n_dev):
-        g = st.gnid_local[d]
-        u[g] = arr[d][:, : len(g)].T
-    return u
-
-
-# ---------------------------------------------------------------------------
-# slab decomposition x fused Pallas kernel: the production multi-chip
-# configuration.  Each shard runs the single-brick fused kernel
-# (solver/pallas_brick.py) on its z-slab; the shared-plane force halo
-# is recovered algebraically from the shard's own fused update
-# (F = (u_next - u)/inv_mass - mass_minusaM*(u - up) at the plane
-# nodes, exact because the update is linear), exchanged with one
-# ppermute per direction, and applied as u_next += F_neighbor *
-# inv_mass -- so the kernel needs no changes and no force output.
-
-def slab_pallas_packed(st) -> bool:
-    """True when the fused slab path uses the packed [8, LEN] state
-    layout: always for elastic, and for BKT when the mesh has one
-    global coefficient set (node-basis uniform-Q kernel).
-    HT_SLAB_PACKED=0 opts out."""
-    import os
-    if os.environ.get("HT_SLAB_PACKED", "1") == "0":
-        return False
-    return st.damping != "bkt" or st.bk_scal is not None
-
-
-def slab_pallas_step_builder(st: SlabTables, axis="d",
-                             dtype=jnp.float32, interpret=False):
-    """Raw per-step kernel for the fused-Pallas slab path: returns
-    (local_step, tdev, state_spec, LEN, (conv_rows, conv_dtype))."""
-    from ..physics.kmats import spectral_factors
-    from ..solver.pallas_brick import (_tier_kco, bk_row_names,
-                                       bkt_conv_dtype, bkt_kappa_zero,
-                                       build_bkt_call,
-                                       build_bkt_uniform_call,
-                                       build_call, build_call_packed,
-                                       pallas_fits, pallas_geometry)
-
-    offs = st.meta.offs
-    if not pallas_fits(offs):
-        raise RuntimeError(
-            "slab xy plane exceeds the fused kernel's VMEM tile; use "
-            "make_slab_step (the XLA slab path)")
-    o7 = offs[7]
-    nb = st.tot_local
-    B, T, LEN = pallas_geometry(offs, nb)
-    plane = st.nyp * st.nxp
-    f1e, f2e = spectral_factors()
-    bkt = st.damping == "bkt"
-    packed = slab_pallas_packed(st)
-
-    def pad_nodes(x):
-        """[n_dev, ..., nb] -> [n_dev, ..., LEN]"""
-        w = [(0, 0)] * (x.ndim - 1) + [(0, LEN - x.shape[-1])]
-        return np.pad(x, w)
-
-    f = lambda x: jnp.asarray(x, dtype)
-    tdev = {}
-    if not packed:
-        tdev["mm"] = f(pad_nodes(st.mass_minusaM))   # [n_dev, 3, LEN]
-        tdev["invm"] = f(pad_nodes(st.inv_mass))[:, None, :]
-    conv_rows = conv_dtype = None
-    if bkt and packed:
-        # global uniform-Q: node-basis memory variables (see
-        # _make_bkt_uniform_kernel); K rows: mm 0:3, invm 3, valid 4
-        shear_only = bkt_kappa_zero(st.bkt)
-        conv_rows = 8 if shear_only else 16
-        conv_dtype = (dtype if shear_only else bkt_conv_dtype(dtype))
-        call = build_bkt_uniform_call(offs, B, o7, T, LEN, dtype,
-                                      st.bk_scal,
-                                      shear_only=shear_only,
-                                      conv_dtype=conv_dtype,
-                                      interpret=interpret)
-        tdev["K"] = f(pad_nodes(np.concatenate(
-            [st.mass_minusaM, st.inv_mass[:, None, :],
-             st.bkt_valid[:, None, :],
-             np.zeros((st.mass_minusaM.shape[0], 3,
-                       st.tot_local))], axis=1)))
-    elif bkt:
-        shear_only = bkt_kappa_zero(st.bkt)
-        conv_rows = 48 if shear_only else 96
-        conv_dtype = bkt_conv_dtype(dtype)
-        call = build_bkt_call(offs, B, o7, T, LEN, dtype,
-                              shear_only=shear_only,
-                              conv_dtype=conv_dtype,
-                              interpret=interpret)
-        tdev["bk"] = f(pad_nodes(np.stack(
-            [st.bkt[k] for k in bk_row_names(shear_only)], axis=1)))
-    else:
-        # kernel contract: (c1, c2, beta) with c3 = beta*c1, c4 = beta*c2
-        c1, c3 = st.c["c1"], st.c["c3"]
-        beta = np.divide(c3, c1, out=np.zeros_like(c1), where=c1 != 0)
-        cm = np.stack([c1, st.c["c2"], beta], axis=1)
-        tier, kco = _tier_kco(c1.ravel(), st.c["c2"].ravel(),
-                              beta.ravel(), c1.ravel() != 0)
-        if packed:
-            call = build_call_packed(offs, B, o7, T, LEN, f1e, f2e,
-                                     dtype, interpret=interpret,
-                                     tier=tier, kco=kco)
-            tdev["K"] = f(pad_nodes(np.concatenate(
-                [cm, st.mass_minusaM, st.inv_mass[:, None, :],
-                 np.zeros((cm.shape[0], 1, cm.shape[-1]))], axis=1)))
-        else:
-            call = build_call(offs, B, o7, T, LEN, f1e, f2e, dtype,
-                              interpret=interpret, tier=tier, kco=kco)
-            tdev["cm"] = f(pad_nodes(cm))        # [n_dev, 3, LEN]
-    from ..solver.pallas_brick import diag_dd
-    dd = diag_dd(f1e, f2e, dtype)
-    has_src = st.src_lidx is not None
-    if has_src:
-        tdev["src_lidx"] = jnp.asarray(st.src_lidx, jnp.int32)
-        tdev["src_mask"] = jnp.asarray(st.src_mask)
-    n_dev = st.n_dev
-    ez_of = jnp.asarray(st.ez_of, jnp.int32)
-
-    def local_step(t, carry, x):
-        srcf, _step = x
-        conv = None
-        if bkt and packed:
-            # packed uniform-Q: carry = (S, conv node-basis)
-            S, conv = carry
-            u, up = S[0:3], S[3:6]
-            un, conv = call(S, S, t["K"], conv, conv)
-        elif bkt:
-            u, up, conv = carry
-            un, conv = call(u, u, up, up, t["bk"], t["mm"], t["invm"],
-                            conv)
-        elif packed:
-            # packed: carry = (S,), S [8, LEN] = (u 0:3, up 3:6); the
-            # kernel output already holds the shifted pair, so the
-            # halo algebra below edits its rows 0:3 in place
-            (S,) = carry
-            u, up = S[0:3], S[3:6]
-            un = call(S, S, t["K"], dd)
-        else:
-            u, up = carry
-            un = call(u, u, up, up, t["cm"], t["mm"], t["invm"], dd)
-        if packed and bkt:
-            # uniform-BKT K layout: mm 0:3, invm 3, valid 4
-            iv = t["K"][3]
-            m1 = t["K"][0:3]
-        elif packed:
-            iv = t["K"][6]
-            m1 = t["K"][3:6]
-        else:
-            iv = t["invm"][0]
-            m1 = t["mm"]
-        if has_src:
-            sf = jnp.where(t["src_mask"][:, None], srcf, 0)
-            un = un.at[:3, t["src_lidx"]].add(
-                sf.T * iv[t["src_lidx"]][None, :])
-
-        # plane forces from the shard's own update (linearity):
-        # un = u + (F + m*(u - up)) * iv  =>  F = (un - u)/iv - m*(u-up)
-        idx = jax.lax.axis_index(axis)
-        zb = ez_of[idx] * plane           # bottom shared plane offset
-
-        def plane_force(pl):
-            """pl: [3/1, plane] slices of un/u/up/iv/m1."""
-            unp, upl, uppl, ivp, m1p = pl
-            return (unp - upl) / ivp - m1p * (upl - uppl)
-
-        z0 = jnp.zeros((), zb.dtype)
-
-        def dslice(a, off, rows):
-            return jax.lax.dynamic_slice(a, (z0, off), (rows, plane))
-
-        f_top = plane_force((un[:3, :plane], u[:, :plane],
-                             up[:, :plane], iv[None, :plane],
-                             m1[:, :plane]))
-        f_bot = plane_force((dslice(un, zb, 3)[:3], dslice(u, zb, 3),
-                             dslice(up, zb, 3),
-                             dslice(iv[None, :], zb, 1),
-                             dslice(m1, zb, 3)))
-        down = jax.lax.ppermute(f_bot, axis, [(i, (i + 1) % n_dev)
-                                              for i in range(n_dev)])
-        up_ = jax.lax.ppermute(f_top, axis, [(i, (i - 1) % n_dev)
-                                             for i in range(n_dev)])
-        # replica-symmetric plane update: both copies of a shared
-        # plane recompute u_next from scratch with the SAME operand
-        # order (lower-device force + upper-device force), so the two
-        # replicas stay bit-identical and a canonical checkpoint
-        # restart reproduces the uninterrupted run exactly
-        wtop = jnp.where(idx > 0, 1.0, 0.0)
-        wbot = jnp.where(idx < n_dev - 1, 1.0, 0.0)
-        du_t = u[:, :plane] - up[:, :plane]
-        top_new = u[:, :plane] + (down + f_top + m1[:, :plane] * du_t) \
-            * iv[None, :plane]
-        un = un.at[:3, :plane].set(
-            wtop * top_new + (1.0 - wtop) * un[:3, :plane])
-        u_b, up_b = dslice(u, zb, 3), dslice(up, zb, 3)
-        du_b = u_b - up_b
-        iv_b = dslice(iv[None, :], zb, 1)
-        bot_new = u_b + (f_bot + up_ + dslice(m1, zb, 3) * du_b) * iv_b
-        un = jax.lax.dynamic_update_slice(
-            un, wbot * bot_new + (1.0 - wbot) * dslice(un, zb, 3)[:3],
-            (z0, zb))
-        if bkt and packed:
-            return (un, conv), None
-        if bkt:
-            return (un, u, conv), None
-        if packed:
-            return (un,), None
-        return (un, u), None
-
-    sspec = ((P(axis),) * 2 if bkt and packed
-             else (P(axis),) * 3 if bkt
-             else (P(axis),) if packed else (P(axis),) * 2)
-    return local_step, tdev, sspec, LEN, (conv_rows, conv_dtype)
-
-
-def make_slab_pallas_step(st: SlabTables, mesh_dev: Mesh, axis="d",
-                          dtype=jnp.float32, interpret=False):
-    local_step, tdev, sspec, LEN, conv_info = slab_pallas_step_builder(
-        st, axis=axis, dtype=dtype, interpret=interpret)
-
-    def scan_all(t, state, xs):
-        t = jax.tree.map(lambda v: v[0], t)
-        state = jax.tree.map(lambda v: v[0], state)
-        state, _ = jax.lax.scan(partial(local_step, t), state, xs)
-        return jax.tree.map(lambda v: v[None], state)
-
-    tspec = jax.tree.map(lambda _: P(axis), tdev)
-    # check_vma off: pallas_call's out_shape carries no vma annotation
-    smap = jax.shard_map(scan_all, mesh=mesh_dev,
-                         in_specs=(tspec, sspec, P()), out_specs=sspec,
-                         check_vma=False)
-    return jax.jit(smap), tdev, LEN, conv_info
-
-
-def run_slab_pallas_solver(st: SlabTables, mesh_dev, src_forces,
-                           total_steps, dt, dtype=jnp.float32,
-                           chunk=None, interpret=False):
-    scan_fn, tdev, LEN, conv_info = make_slab_pallas_step(
-        st, mesh_dev, dtype=dtype, interpret=interpret)
-    if slab_pallas_packed(st):
-        S = jnp.zeros((st.n_dev, 8, LEN), dtype)
-        if st.damping == "bkt":
-            conv_rows, conv_dtype = conv_info
-            state = (S, jnp.zeros((st.n_dev, conv_rows, LEN),
-                                  conv_dtype))
-        else:
-            state = (S,)
-    elif st.damping == "bkt":
-        u = jnp.zeros((st.n_dev, 3, LEN), dtype)
-        conv_rows, conv_dtype = conv_info
-        state = (u, u, jnp.zeros((st.n_dev, conv_rows, LEN),
-                                 conv_dtype))
-    else:
-        u = jnp.zeros((st.n_dev, 3, LEN), dtype)
-        state = (u, u)
-    if chunk is None:
-        chunk = min(total_steps, 1000)
-    dt2 = dt * dt
-    s = 0
-    while s < total_steps:
-        k = min(chunk, total_steps - s)
-        xs = (jnp.asarray(src_forces[s : s + k] * dt2, dtype),
-              jnp.arange(s, s + k, dtype=jnp.int32))
-        state = scan_fn(tdev, state, xs)
-        s += k
-    return state
-
-
-def slab_pallas_u_global(st: SlabTables, u_sharded, N, row0=0):
-    """Global [N, 3] field from the stacked padded slab states.
-    Accepts packed [n_dev, 8, LEN] states: row0=0 reads u, 3 reads
-    u_prev."""
-    arr = np.asarray(u_sharded)[:, row0:row0 + 3, :st.tot_local]
     u = np.zeros((N, 3), arr.dtype)
     for d in range(st.n_dev):
         g = st.gnid_local[d]

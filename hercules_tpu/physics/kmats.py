@@ -227,16 +227,6 @@ def _op_to_matrix(spectral_fn):
     return A @ F @ AT
 
 
-def effective_matrix(c1: float, c2: float):
-    """The effective method's full operator as a node-major matrix, for
-    unit-testing against (c1*M1 + c2*M2): coefficients from
-    stiffness.c:216-218."""
-    a = -0.5625 * (c2 + 2 * c1)
-    c = -0.5625 * c2
-    b = -0.5625 * c1
-    return _op_to_matrix(lambda atu: _first_vector(atu, a, c, b))
-
-
 def bkt_matrices_24():
     """(KMU, KKAPPA): node-major 24x24 BKT damping operators with unit
     coefficient; the per-element force is
@@ -246,76 +236,3 @@ def bkt_matrices_24():
     kmu = _op_to_matrix(lambda atu: _first_vector_mu(atu, 1.0))
     kkappa = _op_to_matrix(lambda atu: _first_vector_kappa(atu, 1.0))
     return kmu, kkappa
-
-
-# ---------------------------------------------------------------------------
-# Spectral stencil factorization for the fused TPU kernel
-# (solver/pallas_brick.py).  The 8-corner Hadamard transform (the same
-# Walsh basis the reference's "effective" method uses,
-# stiffness.c:245-289) block-sparsifies M1/M2: in the spectral basis
-# each operator has ~33 nonzero entries instead of 24x24, so the
-# element force needs ~100 multiply-adds of vectorized butterflies
-# instead of a lane-padded [24,48] matmul.
-
-def hadamard8_stages():
-    """Butterfly stages of the unnormalized 8-point Hadamard over the
-    element-corner index j (bit k of j toggled at stage k): applying
-    the three stages to rows u_0..u_7 computes s = H @ u with
-    H[m, j] = (-1)^{popcount(m & j)}."""
-    return [[(j, j ^ (1 << k)) for j in range(8)] for k in range(3)]
-
-
-def hadamard8_matrix():
-    """The [8, 8] matrix the staged butterflies implement."""
-    H = np.eye(8)
-    for stage in hadamard8_stages():
-        Hn = np.empty_like(H)
-        for j, pj in stage:
-            Hn[j] = H[j] + H[pj] if j < pj else H[pj] - H[j]
-        H = Hn
-    return H
-
-
-def _hadamard_t24():
-    """T: the packed corner-major 24x24 Hadamard (T[3m+c, 3j+c] =
-    H[m, j]), the transform the fused kernel's bf24 butterflies apply."""
-    H = hadamard8_matrix()
-    T = np.zeros((24, 24))
-    for m in range(8):
-        for j in range(8):
-            for c in range(3):
-                T[m * 3 + c, j * 3 + c] = H[m, j]
-    return T
-
-
-def _sparse_factor(M):
-    """Sparse entries of F = T M T^T / 64 such that
-    M @ u = bf24(F_apply(bf24(u)))."""
-    T = _hadamard_t24()
-    F = T @ M @ T.T / 64.0   # M = (1/8 T^T) F' (T) with F' = TMT^T/8
-    # python floats, not np.float64: weak-typed scalars keep the kernel
-    # dtype under jax_enable_x64
-    return [(i // 3, i % 3, j // 3, j % 3, float(F[i, j]))
-            for i in range(24) for j in range(24)
-            if abs(F[i, j]) > 1e-13]
-
-
-def spectral_factors():
-    """Sparse spectral factors of (M1, M2): lists of (m_out, c_out,
-    m_in, c_in, coef) such that with s[m, c] = sum_j H[m, j] u[j, c]
-    (u node-major rows 3j+c) and y[m, c] = sum coef * s[m_in, c_in],
-    the inverse transform f[j, c] = sum_m H[m, j] y[m, c] reproduces
-    f24 = M @ u24 exactly.  The 1/8 Hadamard normalization is folded
-    into the coefficients."""
-    return [_sparse_factor(M) for M in stiffness_matrices_24()]
-
-
-def spectral_bkt_factors():
-    """Sparse spectral factors of (KMU, KKAPPA), same contract as
-    spectral_factors(): the BKT viscoelastic force (damping.c:228-416)
-    becomes, in the kernel's Hadamard basis,
-      f24 = bf24(mu_f * Fmu(bf24(dvs)) + kappa_f * Fk(bf24(dvk)))
-    with element-local convolution state carried in the same basis
-    (the memory-variable recursion is elementwise-linear, so it
-    commutes with the corner transform)."""
-    return [_sparse_factor(M) for M in bkt_matrices_24()]

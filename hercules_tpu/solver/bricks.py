@@ -1,12 +1,12 @@
 """Block-structured ("brick") reorganization of the octree mesh.
 
-Why: on TPU, XLA gathers/scatters run ~50M rows/s while dense slices
-and elementwise ops run at HBM bandwidth (~100x faster).  The
-reference's unstructured element tables (octor.c mesh extraction) are
-therefore the wrong layout for the hot loop.  An octree mesh is
+Why: gathers and scatters move rows at a small fraction of the rate of
+dense slices and elementwise ops, so the reference's unstructured
+element tables (octor.c mesh extraction) are the wrong layout for the
+hot loop.  An octree mesh is
 piecewise *uniform*: grouping same-level leaves into rectangular,
 fully-occupied bricks turns the element kernel into shifted dense
-slices + one small-matrix MXU contraction per brick, with irregular
+slices + one small-matrix contraction per brick, with irregular
 gather/scatter only on the (small) brick-interface node set.
 
 This module builds the decomposition and the per-brick device tables:
@@ -56,12 +56,12 @@ class Brick:
         """Storage axis order, outermost -> innermost, as indices into
         (x, y, z) = (0, 1, 2).  The legacy (z, y, x) order is kept
         whenever every brick's stencil reach (o7 ~ one xy node plane)
-        fits the fused kernel's VMEM tile -- it is what the slab/gslab
-        decompositions assume.  When any brick's xy plane exceeds the
-        tile (terashake's 960x480x15), build_plan reorders ALL bricks
-        largest-extent-outermost, so o7 becomes the product of the two
-        *smallest* dims and interface planes keep matching in-plane
-        axis order across bricks."""
+        fits the element kernel's halo limit (brick_kernel.HALO_NODES)
+        -- it is what the slab decomposition assumes.  When any brick's
+        xy plane exceeds it (TeraShake's flat bricks), build_plan
+        reorders ALL bricks largest-extent-outermost, so o7 becomes the
+        product of the two *smallest* dims and interface planes keep
+        matching in-plane axis order across bricks."""
         return self._axes
 
     @property
@@ -163,8 +163,7 @@ class BrickPlan:
 def build_plan(mesh: MeshArrays, max_bricks=512,
                min_brick_elems=2048, legacy_axes=False) -> BrickPlan:
     """legacy_axes=True pins the (z, y, x) storage order regardless of
-    brick aspect (the slab/gslab decompositions require contiguous
-    z-planes; their XLA kernels have no VMEM envelope to satisfy)."""
+    brick aspect (the slab decomposition requires contiguous z-planes)."""
     all_bricks = decompose(mesh, max_bricks=1_000_000)
     bricks = [b for b in all_bricks
               if int(np.prod(b.shape)) >= min_brick_elems]
@@ -181,20 +180,18 @@ def build_plan(mesh: MeshArrays, max_bricks=512,
             f"{len(bricks)} dense bricks exceed the cap {max_bricks}")
 
     # ---- storage axis order (mesh-global; see Brick.axes) -----------
-    # When some brick's xy plane exceeds the fused kernel's VMEM tile,
-    # reorder to (largest xy axis, z, smaller xy axis): o7 becomes
-    # nz1 * min(nx1, ny1) (small for flat production bricks) AND the
-    # interface z-planes stay dense middle-axis slices for the plane
-    # reconciler (an inner z would force full-buffer strided reads).
-    import os
-    tile = int(os.environ.get("HT_PALLAS_TILE", 32768))
+    # When some brick's xy plane exceeds the element kernel's halo
+    # limit, reorder to (largest xy axis, z, smaller xy axis): o7
+    # becomes nz1 * min(nx1, ny1) (small for flat production bricks)
+    # and interface z-planes stay dense middle-axis slices.
+    from .brick_kernel import HALO_NODES
 
     def legacy_o7(b):
         nx1, ny1 = int(b.shape[0]) + 1, int(b.shape[1]) + 1
         return ny1 * nx1 + nx1 + 1
 
     if (not legacy_axes
-            and any(legacy_o7(b) + 129 > tile for b in bricks)):
+            and any(legacy_o7(b) > HALO_NODES for b in bricks)):
         ext = [max(int(b.shape[a]) + 1 for b in bricks)
                for a in range(3)]
         inner = 0 if ext[0] <= ext[1] else 1

@@ -1,17 +1,17 @@
-"""Device-side brick solver: the TPU fast path.
+"""Device-side brick solver: the structured fast path.
 
-All state lives component-major ([3, total_nodes]) so the minor axis is
-large (TPU tiles pad the minor dimension to 128 lanes; a [N,3] layout
-wastes 42x the bandwidth).  Per brick, the element kernel is:
+All state lives component-major ([3, total_nodes]) so each component is
+one contiguous row.  Per brick, the plain element operator is:
 
   ue[24, S]   8 shifted slices of the brick's node field (3 comps each)
   ab[48, S]   per-element-coefficient combination (elementwise)
-  f[24, S]    one [24,48] @ [48, S] MXU contraction against the
-              constant stiffness operators (physics/kmats.py)
+  f[24, S]    one [24,48] @ [48, S] contraction against the constant
+              stiffness operators (physics/kmats.py)
   force      24 shifted slice-adds back onto the node grid
 
-so the bulk of the step is dense slices + elementwise + matmul at HBM
-bandwidth, with zero gathers.  The only irregular work is the
+so the bulk of the step is dense slices + elementwise + matmul, with
+zero gathers.  On the GPU the elastic operator of all bricks runs as one
+fused kernel instead (brick_kernel.py).  The only irregular work is the
 inter-brick reconciliation over shared/hanging nodes (plan built in
 bricks.py), which touches O(interface) nodes.
 
@@ -22,8 +22,6 @@ bitwise-level agreement in f64.
 
 from __future__ import annotations
 
-import os
-
 from dataclasses import dataclass
 from functools import partial
 from typing import Optional
@@ -33,6 +31,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from .bricks import BrickPlan
+
+HIGHEST = jax.lax.Precision.HIGHEST
+# element-sweep segment of the plain path: bounds the [24, S] dataflow
+# on production-scale bricks (an unsegmented 7M-element brick peaks at
+# several GB of live intermediates)
+_SEG = 1 << 20
 
 
 @dataclass
@@ -160,15 +164,73 @@ def _scatter_back(force_b, f, meta: BrickMeta):
     return force_b
 
 
-def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32):
+def plain_elastic_force(d, u, up, meta, TOT):
+    """[3, TOT] elastic element force of every brick (zero on the loose
+    nodes): the plain XLA operator, segmented along each brick's element
+    sweep.  d holds mcat and c1..c4 on the concatenated node buffer."""
+    force = jnp.zeros((3, TOT), u.dtype)
+    for m in meta:
+        sl_u = jax.lax.dynamic_slice_in_dim(u, m.off, m.nb, axis=1)
+        sl_up = jax.lax.dynamic_slice_in_dim(up, m.off, m.nb, axis=1)
+        fb = jnp.zeros((3, m.nb), u.dtype)
+        for q0 in range(0, m.S, _SEG):
+            qn = min(_SEG, m.S - q0)
+
+            def cut(v):
+                return jax.lax.dynamic_slice_in_dim(v, m.off + q0, qn)
+
+            ue = jnp.concatenate(
+                [jax.lax.dynamic_slice_in_dim(sl_u, o + q0, qn, axis=1)
+                 for o in m.offs], axis=0)
+            upe = jnp.concatenate(
+                [jax.lax.dynamic_slice_in_dim(sl_up, o + q0, qn, axis=1)
+                 for o in m.offs], axis=0)
+            du = ue - upe
+            a = cut(d["c1"])[None] * ue + cut(d["c3"])[None] * du
+            b = cut(d["c2"])[None] * ue + cut(d["c4"])[None] * du
+            f = -jnp.matmul(d["mcat"], jnp.concatenate([a, b], axis=0),
+                            precision=HIGHEST)
+            for j in range(8):
+                o = m.offs[j] + q0
+                seg = jax.lax.dynamic_slice_in_dim(fb, o, qn, axis=1)
+                fb = jax.lax.dynamic_update_slice_in_dim(
+                    fb, seg + f[3 * j:3 * j + 3], o, axis=1)
+        segf = jax.lax.dynamic_slice_in_dim(force, m.off, m.nb, axis=1)
+        force = jax.lax.dynamic_update_slice_in_dim(force, segf + fb,
+                                                    m.off, axis=1)
+    return force
+
+
+def use_element_kernel(damping, platform=None):
+    """The fused element kernel runs the elastic brick operator on the
+    GPU; the CPU (and BKT attenuation) keep the plain XLA operator."""
+    platform = platform or jax.default_backend()
+    return platform == "gpu" and damping != "bkt"
+
+
+def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32,
+                    kernel=None, interpret=False):
     """Returns (step, d): step(d, carry, x) takes the device tables as
     an explicit argument so node-scale arrays lower as program
-    parameters, not HLO literals (see chunking.run_chunked)."""
+    parameters, not HLO literals (see chunking.run_chunked).
+
+    kernel: run the elastic operator as the fused Pallas kernel
+    (default: use_element_kernel); interpret runs it in Pallas'
+    interpreter (tests on the CPU)."""
     d = _to_device(t_host, dtype)
     G = t_host["n_groups"]
     has_src = "src_pos" in d
     has_st = "st_pos" in d
     has_dn = len(t_host["dn_grp"]) > 0
+    if kernel is None:
+        kernel = use_element_kernel(damping)
+    if kernel:
+        if damping == "bkt":
+            raise ValueError("the fused element kernel is elastic-only")
+        from .brick_kernel import make_elastic_force
+        kforce, tab = make_elastic_force(meta, TOT, t_host["mcat"],
+                                         dtype, interpret=interpret)
+        d["ktab"] = jnp.asarray(tab)
 
     def step(d, carry, x):
         mcat = d["mcat"]
@@ -177,56 +239,24 @@ def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32):
 
         if has_st:
             sample = jnp.einsum("sn,csn->sc", d["st_phi"],
-                                u[:, d["st_pos"]])
+                                u[:, d["st_pos"]], precision=HIGHEST)
         else:
             sample = jnp.zeros((0, 3), dtype)
 
-        force = jnp.zeros((3, TOT), dtype)
+        if damping == "bkt":
+            force = jnp.zeros((3, TOT), dtype)
+        elif kernel:
+            force = kforce(d["ktab"], u, up, d["c1"], d["c2"], d["c3"],
+                           d["c4"])
+        else:
+            force = plain_elastic_force(d, u, up, meta, TOT)
         if has_src:
             force = force.at[:, d["src_pos"]].add(srcf.T)
 
         new_conv = []
-        for bi, m in enumerate(meta):
+        for bi, m in enumerate(meta if damping == "bkt" else ()):
             sl_u = jax.lax.dynamic_slice_in_dim(u, m.off, m.nb, axis=1)
             sl_up = jax.lax.dynamic_slice_in_dim(up, m.off, m.nb, axis=1)
-
-            if damping != "bkt":
-                # segment the element sweep so the [24, S] dataflow
-                # stays bounded on production-scale bricks (an
-                # unsegmented 7M-element brick peaks at several GB of
-                # live intermediates)
-                SEG = int(os.environ.get("HT_BRICK_SEG", 1 << 20))
-                fb = jnp.zeros((3, m.nb), dtype)
-                for q0 in range(0, m.S, SEG):
-                    qn = min(SEG, m.S - q0)
-
-                    def cut(v):
-                        return jax.lax.dynamic_slice_in_dim(
-                            v, m.off + q0, qn)
-
-                    ue = jnp.concatenate(
-                        [jax.lax.dynamic_slice_in_dim(
-                            sl_u, o + q0, qn, axis=1)
-                         for o in m.offs], axis=0)
-                    upe = jnp.concatenate(
-                        [jax.lax.dynamic_slice_in_dim(
-                            sl_up, o + q0, qn, axis=1)
-                         for o in m.offs], axis=0)
-                    du = ue - upe
-                    a = cut(d["c1"])[None] * ue + cut(d["c3"])[None] * du
-                    b = cut(d["c2"])[None] * ue + cut(d["c4"])[None] * du
-                    f = -(mcat @ jnp.concatenate([a, b], axis=0))
-                    for j in range(8):
-                        o = m.offs[j] + q0
-                        seg = jax.lax.dynamic_slice_in_dim(fb, o, qn,
-                                                           axis=1)
-                        fb = jax.lax.dynamic_update_slice_in_dim(
-                            fb, seg + f[3 * j:3 * j + 3], o, axis=1)
-                segf = jax.lax.dynamic_slice_in_dim(force, m.off, m.nb,
-                                                    axis=1)
-                force = jax.lax.dynamic_update_slice_in_dim(
-                    force, segf + fb, m.off, axis=1)
-                continue
             # BKT path (memory variables carried per element)
             ue = _elem_field(sl_u, m)       # [24, S]
             upe = _elem_field(sl_up, m)
@@ -261,8 +291,10 @@ def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32):
                 bk["mu_f"], m.off, m.S)
             kp_f = jax.lax.dynamic_slice_in_dim(
                 bk["kappa_f"], m.off, m.S)
-            f = (mu_f[None] * (d["kmu_cat"] @ dvs)
-                 + kp_f[None] * (d["kkappa_cat"] @ dvk))
+            f = (mu_f[None] * jnp.matmul(d["kmu_cat"], dvs,
+                                         precision=HIGHEST)
+                 + kp_f[None] * jnp.matmul(d["kkappa_cat"], dvk,
+                                           precision=HIGHEST))
 
             fb = jnp.zeros((3, m.nb), dtype)
             fb = _scatter_back(fb, f, m)
@@ -281,7 +313,8 @@ def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32):
                 du = ue - upe
                 a = d["l_c1"][:, None] * ue + d["l_c3"][:, None] * du
                 b = d["l_c2"][:, None] * ue + d["l_c4"][:, None] * du
-                lf = -(jnp.concatenate([a, b], 1) @ mcat.T)
+                lf = -jnp.matmul(jnp.concatenate([a, b], 1), mcat.T,
+                                 precision=HIGHEST)
             else:
                 lbk = d["l_bkt"]
                 ue3 = ue.reshape(El, 8, 3)
@@ -308,9 +341,11 @@ def make_brick_step(t_host, meta, TOT, damping, dtype=jnp.float32):
                        - (lbk["a0_kappa"][:, None, None] * lk0
                           + lbk["a1_kappa"][:, None, None] * lk1) + ue3)
                 lf = (lbk["mu_f"][:, None]
-                      * (dvs.reshape(El, 24) @ d["kmu_cat"].T)
+                      * jnp.matmul(dvs.reshape(El, 24), d["kmu_cat"].T,
+                                   precision=HIGHEST)
                       + lbk["kappa_f"][:, None]
-                      * (dvk.reshape(El, 24) @ d["kkappa_cat"].T))
+                      * jnp.matmul(dvk.reshape(El, 24), d["kkappa_cat"].T,
+                                   precision=HIGHEST))
             flat = lf.reshape(-1, 3)[d["l_perm"]]
             add = jax.ops.segment_sum(flat, d["l_seg"], num_segments=TOT,
                                       indices_are_sorted=True)

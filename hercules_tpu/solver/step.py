@@ -65,7 +65,7 @@ def element_forces(d, damping, u_now, u_prev, conv=None):
         a = d["c1"][:, None] * ue + d["c3"][:, None] * du
         b = d["c2"][:, None] * ue + d["c4"][:, None] * du
         ab = jnp.concatenate([a, b], axis=1)          # [E, 48]
-        f = -(ab @ d["m48"])                          # [E, 24]
+        f = -jnp.matmul(ab, d["m48"], precision="highest")      # [E, 24]
         return f.reshape(E, 8, 3), None
 
     # ---- BKT ----
@@ -94,8 +94,10 @@ def element_forces(d, damping, u_now, u_prev, conv=None):
     dvk = (bk["kappa_coef"][:, None, None] * du3
            - (bk["a0_kappa"][:, None, None] * k0
               + bk["a1_kappa"][:, None, None] * k1) + ue3)
-    f = (bk["mu_f"][:, None] * (dvs.reshape(E, 24) @ d["kmu"])
-         + bk["kappa_f"][:, None] * (dvk.reshape(E, 24) @ d["kkappa"]))
+    f = (bk["mu_f"][:, None]
+         * jnp.matmul(dvs.reshape(E, 24), d["kmu"], precision="highest")
+         + bk["kappa_f"][:, None]
+         * jnp.matmul(dvk.reshape(E, 24), d["kkappa"], precision="highest"))
     return f.reshape(E, 8, 3), (s0, s1, k0, k1)
 
 
@@ -168,7 +170,8 @@ def make_step(tables, src_ids, st_nodes=None, st_phi=None,
 
         # station sample of the current displacement (output row s)
         if st_nodes is not None:
-            sample = jnp.einsum("sn,snc->sc", st_phi, u_now[st_nodes])
+            sample = jnp.einsum("sn,snc->sc", st_phi, u_now[st_nodes],
+                                precision="highest")
         else:
             sample = jnp.zeros((0, 3), dtype)
 
@@ -255,7 +258,8 @@ def _geostatic_forces(d, nl, force, u_now, step_idx, nlstate):
         ub = u_now[nl["bot_lnid"]].reshape(Eb, 24)
         a = nl["bc1"][:, None] * ub
         b = nl["bc2"][:, None] * ub
-        kf = (jnp.concatenate([a, b], 1) @ d["m48"]).reshape(Eb, 8, 3)
+        kf = jnp.matmul(jnp.concatenate([a, b], 1), d["m48"],
+                        precision="highest").reshape(Eb, 8, 3)
         new_r = kf[:, 4:, 2] - nl["bot_W"][:, None]   # [Eb, 4]
         reactions = jnp.where(step_idx == nl["final_step"], new_r,
                               reactions)

@@ -13,7 +13,7 @@ from jax.sharding import Mesh
 from hercules_tpu.config import load_params
 from hercules_tpu.cvm import CVM
 from hercules_tpu.meshgen import generate_mesh
-from hercules_tpu.parallel.comm_model import (V5E, gslab_comm, predict,
+from hercules_tpu.parallel.comm_model import (hw_model, predict,
                                               scaling_report,
                                               sharded_comm, slab_comm)
 from hercules_tpu.solver.assemble import assemble
@@ -83,46 +83,6 @@ def test_slab_comm_matches_trace(monkeypatch):
     assert min(sent) == model.bytes_out  # uniform ring
 
 
-def test_gslab_comm_matches_trace(monkeypatch):
-    from hercules_tpu.mesh import Octree, extract_mesh
-    from hercules_tpu.material import MeshOrigin, correct_properties
-    from hercules_tpu.parallel.gslab import (build_gslab_tables,
-                                             run_gslab_solver)
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def setrec(tr, hi, lo, lv):
-        return {"lv": lv}
-
-    def toexpand(tr, hi, lo, lv, rec):
-        from hercules_tpu.etree import morton
-        _x, _y, z = morton.deinterleave3(hi, lo)
-        return lv < np.where(z < (1 << 28), 5, 4)
-
-    tree.refine(setrec, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    correct_properties(mesh, cvm, p, MeshOrigin.from_params(p, cvm.ctl))
-    tables = assemble(mesh, p)
-    nid = np.array([mesh.elem_lnid[mesh.lenum // 3, 0]], np.int32)
-    st = build_gslab_tables(mesh, tables, 4, src_ids=nid,
-                            dtype=jnp.float32, min_brick_elems=512)
-    model = gslab_comm(st)
-    assert model.detail["n_interfaces"] >= 1
-
-    rec = Recorder(monkeypatch)
-    devs = np.array(jax.devices()[:4])
-    forces = np.zeros((1, 1, 3))
-    with Mesh(devs, ("d",)) as m:
-        run_gslab_solver(st, m, forces, 1, p.delta_t,
-                         dtype=jnp.float32, chunk=1, interpret=True)
-    sent, phases = rec.sent_bytes(4)
-    assert max(sent) == model.bytes_out
-    assert phases[int(np.argmax(sent))] == model.phases
-
-
 def test_sharded_comm_matches_trace(monkeypatch):
     from hercules_tpu.parallel.partition import shard_tables
     from hercules_tpu.parallel.sharded import run_sharded
@@ -142,103 +102,22 @@ def test_sharded_comm_matches_trace(monkeypatch):
     assert model.bytes_out == int(2 * 3 / 4 * model.detail["payload"])
 
 
-def test_gmesh_comm_matches_trace(monkeypatch):
-    """The general graded path: per-brick fragment plane ppermutes +
-    ONE [K, 9] interface psum; model == traced traffic."""
-    from hercules_tpu.etree import morton
-    from hercules_tpu.material import MeshOrigin, correct_properties
-    from hercules_tpu.mesh import Octree, extract_mesh
-    from hercules_tpu.parallel.comm_model import gmesh_comm
-    from hercules_tpu.parallel.gmesh import (build_gmesh_tables,
-                                             run_gmesh_solver)
-
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def toexpand(tr, hi, lo, lv, rec):
-        x, y, z = morton.deinterleave3(hi, lo)
-        return lv < np.where(x < (1 << 28), 5, 4)
-
-    tree.refine(lambda tr, hi, lo, lv: {}, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    correct_properties(mesh, cvm, p, MeshOrigin.from_params(p, cvm.ctl))
-    tables = assemble(mesh, p)
-    nid = np.array([mesh.elem_lnid[mesh.lenum // 2, 0]], np.int32)
-    st = build_gmesh_tables(mesh, tables, 4, src_ids=nid,
-                            min_brick_elems=32)
-    model = gmesh_comm(st)
-    assert model.detail["K"] > 0
-
-    rec = Recorder(monkeypatch)
-    devs = np.array(jax.devices()[:4])
-    forces = np.zeros((1, 1, 3))
-    m = Mesh(devs, ("d",))
-    run_gmesh_solver(st, m, forces, 1, p.delta_t,
-                     dtype=jnp.float32, interpret=True)
-    sent, phases = rec.sent_bytes(4)
-    # every device sends both fragment planes of every brick
-    assert max(sent) == model.detail["fragment_bytes"]
-    # exactly one interface psum of the [K, 9] buffer
-    assert rec.psums == [st.K * 9 * 4]
-    assert model.detail["psum_bytes"] == int(2 * 3 / 4 * st.K * 9 * 4)
-
-
 def test_predict_and_report_shape():
     from hercules_tpu.parallel.comm_model import slab_comm_dims
+    hw = hw_model("NVIDIA H100 80GB HBM3")
     c = slab_comm_dims(601, 301, 8)
-    r = predict(c, 11.3e6, 4.0e8, V5E)
+    r = predict(c, 11.3e6, 4.0e8, hw)
     assert 0 < r["efficiency"] <= 1
     assert r["t_step_s"] >= r["t_step_overlap_s"]
     # constant per-device comm: doubling devices halves compute only
-    r16 = predict(slab_comm_dims(601, 301, 16), 11.3e6, 4.0e8, V5E)
+    r16 = predict(slab_comm_dims(601, 301, 16), 11.3e6, 4.0e8, hw)
     assert r16["t_comm_s"] == r["t_comm_s"]
     assert r16["t_compute_s"] < r["t_compute_s"]
-    txt = scaling_report(601, 301, 85, 11.3e6, 4.0e8)
-    assert "eups" in txt and "256" in txt
+    txt = scaling_report(601, 301, 85, 11.3e6, 4.0e8, hw)
+    assert "eups" in txt and "256" in txt and "not a measurement" in txt
 
 
-def test_gmesh_comm_bkt_no_extra_exchange(monkeypatch):
-    """gmesh + BKT (round 5): the memory-variable recursion is
-    node-local and displacement copies reconcile through the existing
-    plane/psum machinery, so attenuation adds ZERO exchange — the
-    traced traffic equals the elastic model exactly."""
-    from hercules_tpu.etree import morton
-    from hercules_tpu.material import MeshOrigin, correct_properties
-    from hercules_tpu.mesh import Octree, extract_mesh
-    from hercules_tpu.parallel.comm_model import gmesh_comm
-    from hercules_tpu.parallel.gmesh import (build_gmesh_tables,
-                                             run_gmesh_solver)
+def test_hw_model_rejects_unknown_device():
+    with pytest.raises(ValueError, match="no published"):
+        hw_model("Unlisted Accelerator 1")
 
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    p.type_of_damping = "bkt"
-    p.finalize()
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def toexpand(tr, hi, lo, lv, rec):
-        x, y, z = morton.deinterleave3(hi, lo)
-        return lv < np.where(x < (1 << 28), 5, 4)
-
-    tree.refine(lambda tr, hi, lo, lv: {}, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    correct_properties(mesh, cvm, p, MeshOrigin.from_params(p, cvm.ctl))
-    tables = assemble(mesh, p)
-    nid = np.array([mesh.elem_lnid[mesh.lenum // 2, 0]], np.int32)
-    st = build_gmesh_tables(mesh, tables, 4, src_ids=nid,
-                            min_brick_elems=32)
-    assert st.bk_scal is not None
-    model = gmesh_comm(st)
-
-    rec = Recorder(monkeypatch)
-    devs = np.array(jax.devices()[:4])
-    m = Mesh(devs, ("d",))
-    run_gmesh_solver(st, m, np.zeros((1, 1, 3)), 1, p.delta_t,
-                     dtype=jnp.float32, interpret=True)
-    sent, phases = rec.sent_bytes(4)
-    assert max(sent) == model.detail["fragment_bytes"]
-    assert rec.psums == [st.K * 9 * 4]

@@ -76,8 +76,7 @@ def single_run(simple_setup, tmp_path_factory):
     return rundir, samples
 
 
-@pytest.mark.parametrize("prefer",
-                         ["slab", "slab_pallas", "sharded"])
+@pytest.mark.parametrize("prefer", ["slab", "sharded"])
 def test_mc_full_pipeline_matches_single(simple_setup, single_run,
                                          tmp_path, prefer):
     """hpsolve on 8 virtual devices: stations + 4-D + planes +
@@ -118,13 +117,11 @@ def test_mc_full_pipeline_matches_single(simple_setup, single_run,
     assert "checkpoint.out0" in outs
 
 
-@pytest.mark.parametrize("prefer", ["slab", "slab_pallas"])
+@pytest.mark.parametrize("prefer", ["slab", "sharded"])
 def test_mc_checkpoint_restart(simple_setup, single_run, tmp_path,
                                prefer):
     """Restart a multi-chip run from its own checkpoint: the resumed
-    station tail matches the uninterrupted run to 1e-9.  slab_pallas
-    covers the packed-state carry (restore through rows 0:3/3:6 of
-    the [8, LEN] S array)."""
+    station tail matches the uninterrupted run to 1e-9."""
     ref_dir, ref_samples = single_run
     rundir = str(tmp_path)
     sim = _make_sim(simple_setup)
@@ -341,46 +338,6 @@ def test_mc_sharded_drm_part2_matches_single(tmp_path):
     np.testing.assert_allclose(u / scale, u_ref / scale, atol=1e-9)
 
 
-def test_mc_sim_dispatch_nonlinear_stations(tmp_path):
-    """sim.run(ndev=8) with nonlinear tables routes to the FUSED
-    gmesh path (no demotion to the unstructured layout; VERDICT r4
-    item 3) and reproduces the single-device station samples
-    (including the one-hot corner rows used for the plastic
-    replay)."""
-    from hercules_tpu.config import load_params
-    from hercules_tpu.nonlinear import build_nonlinear_tables
-    from hercules_tpu.sim import Simulation, setup_stations
-
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    p.end_time = 0.12
-    p.finalize()
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    mesh = generate_mesh(p, cvm)
-    tables = assemble(mesh, p)
-    from hercules_tpu.source.model import SourceModel
-    src = SourceModel.parse(p)
-    src_ids, src_forces = src.compute_forces(mesh, p)
-    nlt = build_nonlinear_tables(mesh, p, _nl_cfg(k=50.0))
-    p.include_nonlinear = 1
-
-    def mk():
-        return Simulation(params=p, cvm=cvm, mesh=mesh,
-                          tables=tables, source=src, src_ids=src_ids,
-                          src_forces=src_forces * 50.0,
-                          stations=setup_stations(mesh, p),
-                          nl_tables=nlt)
-
-    _, s_ref = mk().run(dtype=jnp.float64, rundir=str(tmp_path))
-    sim = mk()
-    _, s_mc = sim.run(dtype=jnp.float64, rundir=str(tmp_path), ndev=8)
-    assert sim.mc_path_name == "gmesh"
-    assert s_mc.shape == s_ref.shape
-    scale = np.abs(s_ref).max()
-    np.testing.assert_allclose(s_mc / scale, s_ref / scale, atol=1e-9)
-    assert sim.nl_station_extras   # replay produced extras
-
-
 def test_mc_fixed_base_matches_single(tmp_path):
     """VERDICT r3 item 6: fixed-base buildings under the multi-chip
     driver — the prescribed base displacements shard like stations
@@ -494,153 +451,3 @@ def sim_mc_u_global(sim, state):
     final state via the path the Simulation actually used."""
     return sim.mc_path.u_global(state)
 
-
-def test_mc_gmesh_fused_nonlinear_matches_single(tmp_path):
-    """Fused multi-chip nonlinear (VERDICT r4 item 3): the gmesh path
-    runs the same per-element plastic subset pass on every device
-    (nonlinear.c:1544-1823 on every rank) — no demotion to the slow
-    unstructured layout.  ndev=8 == the single-device unstructured
-    oracle to f64 tolerance, trajectories AND plastic state."""
-    import jax
-    from jax.sharding import Mesh
-    from hercules_tpu.etree import morton
-    from hercules_tpu.mesh import Octree, extract_mesh
-    from hercules_tpu.nonlinear import (NonlinearConfig,
-                                        build_nonlinear_tables)
-    from hercules_tpu.parallel.driver import GMeshPath, run_multichip
-    from hercules_tpu.parallel.gmesh import build_gmesh_tables
-    from hercules_tpu.solver.step import attach_nonlinear, run_solver
-
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def toexpand(tr, hi, lo, lv, rec):
-        x, y, z = morton.deinterleave3(hi, lo)
-        # 16 fine / 8 coarse z layers divide the 8-device axis
-        return lv < np.where(z < (1 << 28), 6, 5)
-
-    tree.refine(lambda tr, hi, lo, lv: {}, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    E = mesh.lenum
-    vs = np.full(E, 3464.0)
-    vp = np.full(E, 6000.0)
-    rho = np.full(E, 2700.0)
-    ts = mesh.ticksize
-    soft = ((mesh.elem_z.astype(np.float64) * ts < 250.0)
-            & (mesh.elem_x.astype(np.float64) * ts < 250.0))
-    vs[soft], vp[soft], rho[soft] = 1500.0, 3000.0, 2300.0
-    mesh.props = {"Vp": vp, "Vs": vs, "rho": rho}
-    tables = assemble(mesh, p)
-
-    cfg = NonlinearConfig()
-    cfg.material_model = "vonMises"
-    cfg.properties_type = "alphakay"
-    cfg.plasticity_type = "rate_independant"
-    cfg.vs_cut = 2000.0
-    cfg.vs_min = 0.0
-    cfg.vs_limits = np.array([0.0, 1e10])
-    cfg.alpha_cohes = np.array([0.0, 0.0])
-    cfg.kay_phis = np.array([1e3, 1e3])
-    cfg.strain_rates = np.array([1e-3, 1e-3])
-    cfg.sensitivities = np.array([1.0, 1.0])
-    cfg.hardening = np.array([0.0, 0.0])
-    nlt = build_nonlinear_tables(mesh, p, cfg)
-    assert 0 < nlt.n < E
-
-    T = 8
-    rng = np.random.default_rng(9)
-    nid = np.array([mesh.elem_lnid[nlt.eidx[len(nlt.eidx) // 2], 0]],
-                   np.int32)
-    forces = rng.standard_normal((T, 1, 3)) * 1e9
-
-    nl_u = attach_nonlinear(mesh, p, tables, nlt, dtype=jnp.float64)
-    state_u, _ = run_solver(tables, nid, forces, T, p.delta_t,
-                            dtype=jnp.float64, nl=nl_u)
-    u_ref = np.asarray(state_u[0])
-    scale = np.abs(u_ref).max()
-    assert scale > 0
-
-    n_dev = 8
-    st = build_gmesh_tables(mesh, tables, n_dev, src_ids=nid,
-                            dtype=jnp.float64, nl_tables=nlt,
-                            params=p)
-    assert st.nl is not None
-    path = GMeshPath(st, mesh, dtype=jnp.float64, interpret=True)
-    assert path.name == "gmesh"            # non-sharded provenance
-    m = Mesh(np.array(jax.devices()[:n_dev]), ("d",))
-    state, _ = run_multichip(path, m, forces, T, p.delta_t, chunk=4)
-    u_g = path.u_global(state)
-    np.testing.assert_allclose(u_g, u_ref, rtol=0,
-                               atol=5e-12 * scale)
-
-    # plastic state per element, reassembled from the device slots
-    dev, slot = st.nl["dev"], st.nl["slot"]
-    nls = state[2]
-    for a, b in ((np.asarray(nls[0])[dev, slot],
-                  np.asarray(state_u[3][0])),
-                 (np.asarray(nls[2])[dev, slot],
-                  np.asarray(state_u[3][2]))):
-        sb = max(np.abs(b).max(), 1e-30)
-        np.testing.assert_allclose(a, b, rtol=0, atol=5e-12 * sb)
-    assert float(np.asarray(state_u[3][2]).max()) > 0   # flow fired
-
-
-def test_mc_sim_dispatch_nl_gmesh(tmp_path):
-    """sim._run_multichip routes a nonlinear run to the FUSED gmesh
-    path (not ShardedPath) when the plan qualifies: the demotion at
-    sim.py:970 is gone for plain nonlinear."""
-    import jax
-    from hercules_tpu.etree import morton
-    from hercules_tpu.mesh import Octree, extract_mesh
-    from hercules_tpu.nonlinear import (NonlinearConfig,
-                                        build_nonlinear_tables)
-    from hercules_tpu.sim import Simulation
-
-    p = load_params(f"{SIMPLE}/in/physics.in",
-                    f"{SIMPLE}/in/numerical.in")
-    p.end_time = 0.008
-    p.finalize()
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def toexpand(tr, hi, lo, lv, rec):
-        x, y, z = morton.deinterleave3(hi, lo)
-        return lv < np.where(z < (1 << 28), 6, 5)
-
-    tree.refine(lambda tr, hi, lo, lv: {}, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    E = mesh.lenum
-    vs = np.full(E, 3464.0)
-    ts = mesh.ticksize
-    soft = ((mesh.elem_z.astype(np.float64) * ts < 250.0)
-            & (mesh.elem_x.astype(np.float64) * ts < 250.0))
-    vs[soft] = 1500.0
-    mesh.props = {"Vp": np.where(soft, 3000.0, 6000.0), "Vs": vs,
-                  "rho": np.where(soft, 2300.0, 2700.0)}
-    tables = assemble(mesh, p)
-    cfg = NonlinearConfig()
-    cfg.material_model = "vonMises"
-    cfg.properties_type = "alphakay"
-    cfg.plasticity_type = "rate_independant"
-    cfg.vs_cut = 2000.0
-    cfg.vs_min = 0.0
-    cfg.vs_limits = np.array([0.0, 1e10])
-    cfg.alpha_cohes = np.array([0.0, 0.0])
-    cfg.kay_phis = np.array([1e3, 1e3])
-    cfg.strain_rates = np.array([1e-3, 1e-3])
-    cfg.sensitivities = np.array([1.0, 1.0])
-    cfg.hardening = np.array([0.0, 0.0])
-    nlt = build_nonlinear_tables(mesh, p, cfg)
-
-    nid = np.array([mesh.elem_lnid[nlt.eidx[0], 0]], np.int32)
-    T = p.total_steps
-    forces = np.zeros((T, 1, 3))
-    forces[:4, 0, :] = 1e9
-    sim = Simulation(params=p, cvm=None, mesh=mesh, tables=tables,
-                     source=None, src_ids=nid, src_forces=forces,
-                     stations=None)
-    sim.nl_tables = nlt
-    sim.run(dtype=jnp.float64, rundir=str(tmp_path), ndev=8)
-    assert sim.solver_path_name == "mc:gmesh"

@@ -97,142 +97,6 @@ def test_slab_bkt_matches_single():
     np.testing.assert_allclose(u, u_ref, rtol=1e-9, atol=1e-18)
 
 
-def test_slab_pallas_matches_single():
-    """Fused Pallas kernel under slab sharding: the shared-plane force
-    halo recovered from each shard's own linear update + one ppermute
-    per direction matches the single-device solver."""
-    from hercules_tpu.parallel.slab import (run_slab_pallas_solver,
-                                            slab_pallas_u_global)
-    p = load_params(f"{SIMPLE}/in/physics.in", f"{SIMPLE}/in/numerical.in")
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    mesh = generate_mesh(p, cvm)
-    tables = assemble(mesh, p)
-    nid = mesh.elem_lnid[mesh.lenum // 2, 0]
-    src_ids = np.array([nid], np.int32)
-    T = 100
-    forces = np.zeros((T, 1, 3))
-    forces[:10, 0, :] = 1e8
-
-    state, _ = run_solver(tables, src_ids, forces, T, p.delta_t,
-                          dtype=jnp.float64)
-    u_ref = np.asarray(state[0])
-
-    st = build_slab_tables(mesh, tables, 4, src_ids=src_ids)
-    devs = np.array(jax.devices()[:4])
-    with Mesh(devs, ("d",)) as m:
-        sh = run_slab_pallas_solver(st, m, forces, T, p.delta_t,
-                                    dtype=jnp.float64, chunk=50,
-                                    interpret=True)
-    u = slab_pallas_u_global(st, sh[0], mesh.nnum)
-    np.testing.assert_allclose(u, u_ref, rtol=1e-9, atol=1e-18)
-
-
-def test_slab_pallas_bkt_matches_single():
-    """Fused BKT kernel under slab sharding: the spectral-basis
-    convolution state stays shard-local; the same force-plane recovery
-    + ppermute exchange matches the single-device solver."""
-    from hercules_tpu.parallel.slab import (run_slab_pallas_solver,
-                                            slab_pallas_u_global)
-    p = load_params(f"{SIMPLE}/in/physics.in", f"{SIMPLE}/in/numerical.in")
-    p.type_of_damping = "bkt"
-    p.finalize()
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    mesh = generate_mesh(p, cvm)
-    tables = assemble(mesh, p)
-    nid = mesh.elem_lnid[mesh.lenum // 2, 0]
-    src_ids = np.array([nid], np.int32)
-    T = 40
-    forces = np.zeros((T, 1, 3))
-    forces[:10, 0, :] = 1e8
-
-    state, _ = run_solver(tables, src_ids, forces, T, p.delta_t,
-                          dtype=jnp.float64)
-    u_ref = np.asarray(state[0])
-
-    st = build_slab_tables(mesh, tables, 4, src_ids=src_ids)
-    devs = np.array(jax.devices()[:4])
-    with Mesh(devs, ("d",)) as m:
-        sh = run_slab_pallas_solver(st, m, forces, T, p.delta_t,
-                                    dtype=jnp.float64, chunk=20,
-                                    interpret=True)
-    u = slab_pallas_u_global(st, sh[0], mesh.nnum)
-    scale = np.abs(u_ref).max()
-    np.testing.assert_allclose(u, u_ref, rtol=0, atol=1e-11 * scale)
-
-
-def _depth_graded(damping="rayleigh"):
-    from hercules_tpu.material import MeshOrigin, correct_properties
-    from hercules_tpu.mesh import Octree, extract_mesh
-    p = load_params(f"{SIMPLE}/in/physics.in", f"{SIMPLE}/in/numerical.in")
-    p.type_of_damping = damping
-    p.finalize()
-    cvm = CVM(f"{SIMPLE}/simple_case.e")
-    tree = Octree.newtree(1000.0, 1000.0, 500.0)
-
-    def setrec(tr, hi, lo, lv):
-        return {"lv": lv}
-
-    def toexpand(tr, hi, lo, lv, rec):
-        from hercules_tpu.etree import morton
-        x, y, z = morton.deinterleave3(hi, lo)
-        near = z < (1 << 28)
-        return lv < np.where(near, 5, 4)
-
-    tree.refine(setrec, toexpand)
-    tree.balance()
-    mesh = extract_mesh(tree)
-    correct_properties(mesh, cvm, p, MeshOrigin.from_params(p, cvm.ctl))
-    return p, mesh, assemble(mesh, p)
-
-
-@pytest.mark.parametrize("damping,ndev", [("rayleigh", 4),
-                                          ("bkt", 4),
-                                          ("rayleigh", 3)])
-def test_gslab_graded_matches_single(damping, ndev):
-    """Graded multi-chip path (parallel/gslab.py): every brick z-sharded
-    over the device axis, fused kernels + within-brick force-plane
-    halos + ppermute'd dense 2:1 interface reconciliation; matches the
-    single-device brick solver.  ndev=3 exercises UNEVEN per-brick
-    layer splits (fine 8 = 3+3+2, coarse 4 = 2+1+1)."""
-    import os
-    from hercules_tpu.parallel.gslab import (build_gslab_tables,
-                                             gslab_u_global,
-                                             run_gslab_solver)
-    from hercules_tpu.solver.bricks import build_plan
-    from hercules_tpu.solver.brickstep import (brick_u_global,
-                                               run_brick_solver)
-
-    p, mesh, tables = _depth_graded(damping)
-    # lower the brick floor so the small coarse half stays dense
-    plan = build_plan(mesh, min_brick_elems=512)
-    assert len(plan.bricks) == 2
-
-    # source on the interface plane (a dangling anchor) + one interior
-    dn_anchor = int(mesh.dn_anchors[mesh.dn_weights > 0][0])
-    nid = np.array([mesh.elem_lnid[mesh.lenum // 3, 0], dn_anchor],
-                   np.int32)
-    T = 24
-    rng = np.random.default_rng(9)
-    forces = rng.standard_normal((T, 2, 3)) * 1e8
-
-    state_b, _ = run_brick_solver(plan, tables, nid, forces, T,
-                                  p.delta_t, dtype=jnp.float64,
-                                  chunk=12)
-    u_ref = brick_u_global(plan, state_b[0], mesh.nnum)
-
-    st = build_gslab_tables(mesh, tables, ndev, src_ids=nid,
-                            dtype=jnp.float64, min_brick_elems=512)
-    devs = np.array(jax.devices()[:ndev])
-    with Mesh(devs, ("d",)) as m:
-        sh = run_gslab_solver(st, m, forces, T, p.delta_t,
-                              dtype=jnp.float64, chunk=12,
-                              interpret=True)
-    u = gslab_u_global(st, sh[0], mesh.nnum)
-    scale = np.abs(u_ref).max()
-    assert scale > 0
-    np.testing.assert_allclose(u, u_ref, rtol=0, atol=5e-12 * scale)
-
-
 def test_slab_unaffected_by_axis_reorder(monkeypatch):
     """Large-plane meshes trigger the mesh-global axis reorder for the
     fused kernels, but the slab decomposition pins the legacy z-major
@@ -265,35 +129,3 @@ def test_slab_unaffected_by_axis_reorder(monkeypatch):
     u = slab_u_global(st, sh[0], mesh.nnum)
     np.testing.assert_allclose(u, u_ref, rtol=1e-9, atol=1e-18)
 
-
-def test_bkt_corner_stack_roundtrip():
-    """The multi-chip corner->node checkpoint conversion
-    (driver._bkt_corner_stack_to_node) inverts conv_node_to_corner
-    exactly on the valid columns (uniform-Q invariant)."""
-    import jax.numpy as jnp
-    from hercules_tpu.parallel.driver import _bkt_corner_stack_to_node
-    from hercules_tpu.solver.pallas_brick import conv_node_to_corner
-
-    rng = np.random.default_rng(2)
-    offs = (0, 1, 10, 11, 100, 101, 110, 111)
-    n_dev, LEN, R2s, R = 3, 256, 16, 96
-    valid = np.zeros((n_dev, LEN))
-    node = np.zeros((n_dev, R2s, LEN))
-    corner = np.zeros((n_dev, R, LEN))
-    for d in range(n_dev):
-        ecols = rng.choice(LEN - offs[-1] - 1, size=40, replace=False)
-        valid[d, ecols] = 1.0
-        nb = rng.standard_normal((R2s, LEN))
-        nb[12:] = 0.0                      # padding rows
-        node[d] = nb
-        corner[d] = conv_node_to_corner(offs, valid[d] != 0, nb, R)
-    back = np.asarray(_bkt_corner_stack_to_node(
-        offs, valid, corner, R2s, jnp.float64))
-    # node values at every touched column round-trip exactly
-    # (rows 12: are padding and come back zero)
-    for d in range(n_dev):
-        e = np.flatnonzero(valid[d])
-        touched = np.unique((e[:, None] + np.asarray(offs)).ravel())
-        want = np.concatenate([node[d][:12], np.zeros((4, LEN))])
-        np.testing.assert_allclose(back[d][:, touched],
-                                   want[:, touched], rtol=0, atol=0)

@@ -129,8 +129,8 @@ def test_simple_full_fp32_golden_brick_path():
     per-step displacement increment accumulates ~2 ulp/step of the
     O(1000 m) station displacement, i.e. a few-e-3 relative over 20000
     steps (measured 4e-3).  Budget 1e-2 relative to each station's
-    own displacement scale.  (The same run on the fused TPU kernel is
-    exercised by `BENCH_GOLDEN=1 python bench.py` on real hardware.)"""
+    own displacement scale.  (The same run with the GPU element kernel
+    has no recorded golden error yet.)"""
     sim = Simulation.setup(f"{SIMPLE}/in/physics.in",
                            f"{SIMPLE}/in/numerical.in",
                            cvmdb=f"{SIMPLE}/simple_case.e")

@@ -2,10 +2,7 @@
 config (600x300x84.4 km SCEC box, planewithkinks kinematic rupture)
 with an in-tree synthetic layered CVM standing in for the SCEC
 database (which is not shipped), at reduced frequency/steps so the
-test stays small."""
-
-import os
-import shutil
+test stays small.  Inputs are the committed examples/terashake/run."""
 
 import numpy as np
 import pytest
@@ -15,59 +12,15 @@ import jax.numpy as jnp
 from hercules_tpu.config import load_params
 from hercules_tpu.cvm import CVM
 from hercules_tpu.meshgen import generate_mesh
-from hercules_tpu.sim import Simulation
-from hercules_tpu.tools.makecvm import build_layered_cvm
-
-TERA = "/root/reference/examples/terashake"
-
 
 @pytest.fixture(scope="module")
 def tera_dir(tmp_path_factory):
+    """Run directory from the committed inputs (examples/terashake/run:
+    the reduced 50x8-cell rupture and the layered stand-in CVM) at
+    0.0125 Hz for 4 s."""
+    from hercules_tpu.tools.cases import prepare_terashake
     d = tmp_path_factory.mktemp("tera")
-    # synthetic layered crust: soft basin fill over stiff crust
-    layers = [
-        [0.0, 1200.0, 500.0, 2000.0],
-        [9375.0, 3500.0, 1800.0, 2400.0],
-        [28125.0, 6000.0, 3464.0, 2700.0],
-    ]
-    cvm_path = str(d / "tera_layers.e")
-    n = build_layered_cvm(cvm_path, 600000.0, 300000.0, 84375.0,
-                          4687.5, layers,
-                          origin_lat=34.5, origin_lon=-121.0)
-    assert n > 0
-
-    # run directory: reference inputs + reduced numerical settings
-    (d / "in").mkdir()
-    phys = open(f"{TERA}/physics.in").read()
-    num = open(f"{TERA}/numerical.in").read()
-    # the reference file is tab-separated: patch by key, not literal
-    import re
-    num = re.sub(r"simulation_wave_max_freq_hz\s*=\s*\S+",
-                 "simulation_wave_max_freq_hz = .0125", num)
-    num = re.sub(r"^simulation_end_time_sec\s*=\s*\S+",
-                 "simulation_end_time_sec = 4", num, flags=re.M)
-    num = re.sub(r"number_output_planes\s*=\s*\S+",
-                 "number_output_planes = 0", num)
-    (d / "in" / "physics.in").write_text(phys)
-    (d / "in" / "numerical.in").write_text(num)
-
-    # source dir: reference source.in with a reduced fault grid +
-    # synthesized slip/rake tables (not shipped in-tree)
-    (d / "src").mkdir()
-    src = open(f"{TERA}/sourceterashake/source.in").read()
-    src = src.replace("extended_cells_along_strike         = 1000",
-                      "extended_cells_along_strike         = 50")
-    src = src.replace("extended_cells_down_dip             = 75",
-                      "extended_cells_down_dip             = 5")
-    src = src.replace("extended_cell_size_down_dip_m       = 200.",
-                      "extended_cell_size_down_dip_m       = 3000.")
-    (d / "src" / "source.in").write_text(src)
-    rows, cols, nw = 5, 50, 6
-    rng = np.random.default_rng(0)
-    slip = np.abs(rng.normal(1.0, 0.3, (nw, rows, cols)))
-    rake = np.full((nw, rows, cols), 180.0)
-    np.savetxt(d / "src" / "slip.in", slip.reshape(nw * rows, cols))
-    np.savetxt(d / "src" / "rake.in", rake.reshape(nw * rows, cols))
+    prepare_terashake(str(d), 0.0125, 4.0)
     return d
 
 
@@ -76,7 +29,7 @@ def test_terashake_mesh_and_run(tera_dir):
     p = load_params(str(d / "in" / "physics.in"),
                     str(d / "in" / "numerical.in"))
     assert p.region_length_east_m == 600000.0
-    p.source_directory = str(d / "src")
+    p.source_directory = str(d / "in" / "src")
     cvm = CVM(str(d / "tera_layers.e"))
     mesh = generate_mesh(p, cvm)
     # graded mesh: smaller elements in the soft basin than at depth
